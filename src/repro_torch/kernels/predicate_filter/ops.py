@@ -1,0 +1,88 @@
+"""Public wrapper for the predicate_filter kernel.
+
+Handles the cached conditionsList canonicalization and picks the version by
+the tensor's device: a CPU tensor runs the plain version in ``ref.py``, a
+CUDA tensor launches ``csrc/predicate_filter.cu`` (or raises). The kernel
+masks the ragged tail itself, so no padding happens here.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.predicates import CompiledConditions
+from repro_torch.kernels.predicate_filter import ref
+
+# launches of the CUDA kernel in this process (never the plain version)
+LAUNCHES = 0
+
+_CANON_CACHE: Dict[Tuple, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+_TABLE_CACHE: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
+
+
+def _key(conds: CompiledConditions, num_fields: int) -> Tuple:
+    return (conds.field_idx.tobytes(), conds.op.tobytes(), conds.value.tobytes(),
+            conds.npreds.tobytes(), conds.field_idx.shape, num_fields)
+
+
+def canonical_arrays(conds: CompiledConditions, num_fields: int):
+    """Cached interval canonicalization as host numpy (lo, hi, neq)."""
+    key = _key(conds, num_fields)
+    if key not in _CANON_CACHE:
+        ic = ref.canonicalize(conds, num_fields)
+        _CANON_CACHE[key] = (ic.lo, ic.hi, ic.neq)
+    return _CANON_CACHE[key]
+
+
+def _device_tables(conds: CompiledConditions, num_fields: int,
+                   device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``canonical_arrays`` uploaded once per device (a few KB)."""
+    key = (_key(conds, num_fields), str(device))
+    if key not in _TABLE_CACHE:
+        _TABLE_CACHE[key] = tuple(torch.as_tensor(a, device=device)
+                                  for a in canonical_arrays(conds, num_fields))
+    return _TABLE_CACHE[key]
+
+
+def predicate_filter(fields: torch.Tensor,
+                     conds: CompiledConditions) -> torch.Tensor:
+    """(N, F) int32 records x conditionsList -> (N, C) bool match bitmap."""
+    lo, hi, neq = _device_tables(conds, int(fields.shape[1]), fields.device)
+    return predicate_filter_padded(fields, lo, hi, neq)
+
+
+def predicate_filter_padded(fields: torch.Tensor, lo: torch.Tensor,
+                            hi: torch.Tensor, neq: torch.Tensor) -> torch.Tensor:
+    """Canonical-table form: (N, F) x (C, F) lo/hi/neq -> (N, C) bool."""
+    if fields.device.type == "cpu":
+        return ref.predicate_filter(fields, lo, hi, neq)
+    return _launch(fields, lo, hi, neq)
+
+
+def _launch(fields, lo, hi, neq) -> torch.Tensor:
+    global LAUNCHES
+    from repro_torch.kernels import _build
+    n, f = fields.shape
+    c = lo.shape[0]
+    for name, t, shape in (("fields", fields, (n, f)), ("lo", lo, (c, f)),
+                           ("hi", hi, (c, f)), ("neq", neq, (c, f))):
+        if (t.device != fields.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"predicate_filter: {name} must be a contiguous "
+                             f"int32 {shape} tensor on {fields.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty((n, c), dtype=torch.bool, device=fields.device)
+    if n == 0 or c == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(fields.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.predicate_filter_launch(
+            fields.data_ptr(), lo.data_ptr(), hi.data_ptr(), neq.data_ptr(),
+            out.data_ptr(), n, f, c, ctypes.c_void_p(stream))
+    _build.check(code, "predicate_filter")
+    LAUNCHES += 1
+    return out

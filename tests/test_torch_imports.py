@@ -1,0 +1,55 @@
+"""The port stands alone: no module of ``src/repro_torch``, nor
+``chip_smoke.py``, the torch quickstart or the profiling tool, imports JAX
+or the reference package, and importing the engine leaves JAX unloaded."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "tools" / "profile_main_path.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro") or module.startswith("flax")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = sorted(m for m in _imported_modules(path) if _forbidden(m))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_forbidden_rule_itself():
+    assert _forbidden("jax.numpy") and _forbidden("repro.core.engine")
+    assert not _forbidden("repro_torch.core.engine")
+    assert not _forbidden("torch")
+
+
+def test_engine_import_leaves_jax_unloaded():
+    code = ("import sys; import repro_torch.core.engine, "
+            "repro_torch.kernels.predicate_filter.ops, "
+            "repro_torch.kernels.spatial_match.ops, repro_torch.core.interop; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
