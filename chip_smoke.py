@@ -9,7 +9,8 @@ exits non-zero, printing no result, without them. Phases:
 1. Build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc's
    ``-Xptxas -v`` lines are printed) and hold each kernel against its plain
    PyTorch version on the card, exactly, at the main path's shapes and on
-   edge cases; time both with CUDA events beside the kernel's bound.
+   edge cases; time each kernel's raw launches from one CUDA graph (and
+   its wrapper and plain version) with CUDA events beside its bound.
 2. The main path at a size users would call real: one engine, three
    channels (TweetsAboutDrugs with 1,000,000 subscriptions,
    MostThreateningTweets with 200,000, TweetsAboutCrime3 over 10,000 users),
@@ -67,6 +68,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(launch, iters: int = 100, replays: int = 5) -> float:
+    """Device milliseconds per kernel launch: ``launch(stream)`` enqueues
+    one raw launch (inputs and output already allocated); ``iters`` of them
+    are captured in one CUDA graph and replayed between CUDA events, so no
+    host work (wrapper checks, allocation, the ctypes call) sits between
+    the launches."""
+    launch(torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(iters):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -90,10 +116,12 @@ def kernel_parity(dev) -> dict:
     from repro_torch.core.predicates import (Predicate, compile_conditions,
                                              evaluate_conditions)
     from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import _build
     from repro_torch.kernels.predicate_filter import ops as pf_ops
     from repro_torch.kernels.predicate_filter import ref as pf_ref
     from repro_torch.kernels.spatial_match import ops as sm_ops
 
+    lib = _build.library()
     rng = np.random.default_rng(SEED)
     out = {}
 
@@ -125,9 +153,17 @@ def kernel_parity(dev) -> dict:
         assert torch.equal(pf_ops.predicate_filter(x, conds),
                            evaluate_conditions(x, conds)), f"ragged N={n}"
     n, nf, c = fields.shape[0], fields.shape[1], lo.shape[0]
+    pf_out = torch.empty((n, c), dtype=torch.bool, device=dev)
+
+    def pf_raw(stream):
+        _build.check(lib.predicate_filter_launch(
+            fields.data_ptr(), lo.data_ptr(), hi.data_ptr(), neq.data_ptr(),
+            pf_out.data_ptr(), n, nf, c, stream), "predicate_filter")
+
     out["predicate_filter"] = dict(
-        shape=f"N={n} F={nf} C={c}", max_abs_err=err,
-        ms=cuda_ms(lambda: pf_ops.predicate_filter(fields, conds), 200),
+        shape=f"N={n} F={nf} C={c}", max_abs_err=err, ms=graph_ms(pf_raw),
+        wrapper_ms=cuda_ms(lambda: pf_ops.predicate_filter(fields, conds),
+                           200),
         plain_ms=cuda_ms(lambda: pf_ref.predicate_filter(fields, lo, hi, neq),
                          50),
         bound_bytes=n * nf * 4 + 3 * c * nf * 4 + n * c,
@@ -155,9 +191,16 @@ def kernel_parity(dev) -> dict:
     hit = sm_ops.spatial_match(far, ufar, radius)
     assert hit.tolist() == [[False, False], [False, True]], hit.tolist()
     r, uu = t.shape[0], u.shape[0]
+    sm_out = torch.empty((r, uu), dtype=torch.bool, device=dev)
+
+    def sm_raw(stream):
+        _build.check(lib.spatial_match_launch(
+            t.data_ptr(), u.data_ptr(), sm_out.data_ptr(), r, uu,
+            sm_ops.radius2(radius), stream), "spatial_match")
+
     out["spatial_match"] = dict(
-        shape=f"R={r} U={uu}", max_abs_err=err,
-        ms=cuda_ms(lambda: sm_ops.spatial_match(t, u, radius), 50),
+        shape=f"R={r} U={uu}", max_abs_err=err, ms=graph_ms(sm_raw, 20),
+        wrapper_ms=cuda_ms(lambda: sm_ops.spatial_match(t, u, radius), 50),
         plain_ms=cuda_ms(lambda: sm_ops.spatial_match_plain(t, u, radius), 10),
         bound_bytes=r * 8 + uu * 8 + r * uu,
         bound_ops=7 * r * uu + 3 * (r + uu))
@@ -194,7 +237,7 @@ def spatial_hits_numpy(t: np.ndarray, u: np.ndarray, radius: float) -> int:
     return int((dist2 < np.float32(radius) ** 2).sum())
 
 
-def main_path(dev, cfg: dict, require_kernels: bool = True) -> dict:
+def main_path(dev, cfg: dict) -> dict:
     from repro_torch.core import records as R
     from repro_torch.core.engine import BADEngine
     from repro_torch.core.plans import ExecutionFlags
@@ -271,7 +314,7 @@ def main_path(dev, cfg: dict, require_kernels: bool = True) -> dict:
     wall = time.perf_counter() - t0
     launches = {"predicate_filter": pf_ops.LAUNCHES,
                 "spatial_match": sm_ops.LAUNCHES}
-    if require_kernels:
+    if dev.type == "cuda":
         assert launches["predicate_filter"] == cfg["ticks"], launches
         assert launches["spatial_match"] == cfg["ticks"], launches
     return dict(setup_s=setup_s, wall_s=wall, ticks=cfg["ticks"],
@@ -395,7 +438,8 @@ def main() -> int:
     print(f"[parity] exact at the main path's shapes and edges in "
           f"{time.perf_counter() - t:.1f} s")
     for name, k in kernels.items():
-        print(f"[kernel] {name} {k['shape']}: {k['ms']:.4f} ms, plain "
+        print(f"[kernel] {name} {k['shape']}: {k['ms']:.4f} ms (graph of "
+              f"raw launches), wrapper {k['wrapper_ms']:.4f} ms, plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})")
 
@@ -427,6 +471,7 @@ def main() -> int:
          "source": f"src/repro_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": mp["launches"][name],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "wrapper_ms": k["wrapper_ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None, "shape": k["shape"]}
         for name, k in kernels.items()]}

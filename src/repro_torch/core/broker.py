@@ -168,23 +168,26 @@ def _ch(C: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(C, dtype=I32, device=like.device)[:, None]
 
 
-def _pair_layout(result: ChannelResult, caps, cap_limit: int):
-    """Shared per-channel pair bookkeeping for the stacked delivery stages:
-    (valid2, rows2, tgt2, cumv, produced, cap), all (C, P)-shaped. ``cumv``
-    is the inclusive per-channel prefix count of valid pairs (ravel order) —
-    slot q's source pair is ``searchsorted(cumv[c], q, right=True)``."""
+def _pair_layout(result: ChannelResult):
+    """Per-channel pair bookkeeping shared by the stacked delivery stages:
+    (valid2, rows2, tgt2, cumv), all (C, P)-shaped. ``cumv`` is the
+    inclusive per-channel prefix count of valid pairs (ravel order) — slot
+    q's source pair is ``searchsorted(cumv[c], q, right=True)``. One
+    delivery computes it once and hands it to every stage."""
     C = result.pair_valid.shape[0]
     valid2 = result.pair_valid.reshape(C, -1)
     rows2 = result.pair_rows.reshape(C, -1)
     tgt2 = result.pair_targets.reshape(C, -1)
-    cumv = torch.cumsum(valid2, dim=1, dtype=I32)
-    produced = cumv[:, -1]
+    return valid2, rows2, tgt2, torch.cumsum(valid2, dim=1, dtype=I32)
+
+
+def _caps(caps, cap_limit: int, like: torch.Tensor) -> torch.Tensor:
+    """(C,) int32 per-channel delivery caps, at most ``cap_limit``."""
     if caps is None:
-        cap = torch.full((C,), cap_limit, dtype=I32, device=valid2.device)
-    else:
-        cap = torch.clamp(torch.as_tensor(caps, dtype=I32,
-                                          device=valid2.device), max=cap_limit)
-    return valid2, rows2, tgt2, cumv, produced, cap
+        return torch.full((like.shape[0],), cap_limit, dtype=I32,
+                          device=like.device)
+    return torch.clamp(torch.as_tensor(caps, dtype=I32, device=like.device),
+                       max=cap_limit)
 
 
 def _member_counts(group_sids: torch.Tensor, valid2: torch.Tensor,
@@ -265,11 +268,18 @@ def pack_payloads_all(result: ChannelResult, group_sids: torch.Tensor,
     ``target_brokers`` (C, T) enables one-hot per-broker accounting of
     delivered pairs; ``counts`` (C, T) supplies the maintained member
     counts."""
-    C = result.pair_valid.shape[0]
-    valid2, rows2, tgt2, cumv, produced, cap_p = _pair_layout(
-        result, caps, max_pairs)
-    P = valid2.shape[1]
+    layout = _pair_layout(result)
+    return _pack(layout, _caps(caps, max_pairs, layout[0]), group_sids,
+                 payload_words, max_pairs, target_brokers, num_brokers, counts)
+
+
+def _pack(layout, cap_p: torch.Tensor, group_sids: torch.Tensor,
+          payload_words: int, max_pairs: int, target_brokers,
+          num_brokers: int, counts) -> PackedDelivery:
+    valid2, rows2, tgt2, cumv = layout
+    C, P = valid2.shape
     ch = _ch(C, valid2)
+    produced = cumv[:, -1]
     delivered = torch.minimum(produced, cap_p)
     q = _ranks(C, max_pairs, valid2)
     p = torch.clamp(_source_pair(cumv, q), max=P - 1)          # (C, max_pairs)
@@ -298,16 +308,17 @@ def fanout_sids_all(result: ChannelResult, group_sids: torch.Tensor,
     """Send stage for EVERY channel at once, with per-channel caps. Each
     notify slot binary-searches its source pair in the per-channel member
     prefix sums and gathers the sID directly."""
-    return _fanout_parts(result, group_sids, max_notify, caps, counts)[0]
+    layout = _pair_layout(result)
+    return _fanout_parts(layout, _caps(caps, max_notify, layout[0]),
+                         group_sids, max_notify, counts)[0]
 
 
-def _fanout_parts(result: ChannelResult, group_sids: torch.Tensor,
-                  max_notify: int, caps,
-                  counts: Optional[torch.Tensor] = None):
-    """The send stage plus its internal member bookkeeping, so
+def _fanout_parts(layout, cap_n: torch.Tensor, group_sids: torch.Tensor,
+                  max_notify: int, counts: Optional[torch.Tensor] = None):
+    """The send stage plus its member counts and prefix sums, so
     ``deliver_all`` resolves spill slots against the same prefix sums."""
-    C = result.pair_valid.shape[0]
-    valid2, _, tgt2, _, _, cap_n = _pair_layout(result, caps, max_notify)
+    valid2, _, tgt2, _ = layout
+    C = valid2.shape[0]
     members = _member_counts(group_sids, valid2, tgt2, counts)  # (C, P)
     cumm = torch.cumsum(members, dim=1, dtype=I32)
     produced = cumm[:, -1]
@@ -315,8 +326,7 @@ def _fanout_parts(result: ChannelResult, group_sids: torch.Tensor,
     k = _ranks(C, max_notify, valid2)
     notify = _member_lookup(group_sids, tgt2, members, cumm, k,
                             k < delivered[:, None])
-    return FanoutDelivery(notify, delivered, produced), (tgt2, members, cumm,
-                                                         cap_n)
+    return FanoutDelivery(notify, delivered, produced), members, cumm
 
 
 def _member_lookup(group_sids, tgt2, members, cumm, k, ok) -> torch.Tensor:
@@ -346,15 +356,16 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
     channel are captured; the rest are truncated for the caller to count as
     drops). Spill slots gather their entry straight from the per-channel
     overflow windows, so spill work is O(C * spill_cap)."""
-    pack = pack_payloads_all(result, group_sids, payload_words, max_pairs,
-                             caps_pairs, target_brokers, num_brokers, counts)
-    valid2, rows2, tgt2, cumv, produced, cap_p = _pair_layout(
-        result, caps_pairs, max_pairs)
+    layout = _pair_layout(result)
+    valid2, rows2, tgt2, cumv = layout
     P = valid2.shape[1]
+    cap_p = _caps(caps_pairs, max_pairs, valid2)
+    pack = _pack(layout, cap_p, group_sids, payload_words, max_pairs,
+                 target_brokers, num_brokers, counts)
 
     # pairs lane: spill slot (c, i) -> in-channel pair rank cap_c + i ->
     # source pair, by binary search + gather
-    ov_p = produced - pack.delivered                           # (C,)
+    ov_p = pack.produced - pack.delivered                      # (C,)
     ch_r, k_r, valid_r, total_p = _spill_slots(ov_p, cap_p, spill_cap)
     pr = _row_search(cumv, P + 1, ch_r, k_r).long()
     chl = ch_r.long()
@@ -367,8 +378,9 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
                                   take(tgt2), valid_r, total_p)
 
     # sids lane: same scheme over the send stage's member prefix sums
-    fan, (tgt2, members, cumm, cap_n) = _fanout_parts(
-        result, group_sids, max_notify, caps_notify, counts)
+    cap_n = _caps(caps_notify, max_notify, valid2)
+    fan, members, cumm = _fanout_parts(layout, cap_n, group_sids, max_notify,
+                                       counts)
     ov_s = fan.produced - fan.delivered
     ch_s, k_s, valid_s, total_s = _spill_slots(ov_s, cap_n, spill_cap)
     sid_cap = 1 if group_sids.shape[-1] == 0 else group_sids.shape[-1]

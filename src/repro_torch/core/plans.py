@@ -246,8 +246,8 @@ def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _broker_sums(values: torch.Tensor, bids: torch.Tensor,
                  num_brokers: int) -> torch.Tensor:
-    """(B,) int32 per-broker sums of ``values`` over the pair grid; pairs
-    carrying the sentinel id ``num_brokers`` count nowhere. One masked
+    """(B,) int32 per-broker sums of ``values``; entries whose broker id lies
+    outside [0, B) (the sentinel ``num_brokers``) count nowhere. One masked
     reduction per broker — the reference's ``fused`` formulation, equal to
     its segment sum — because a scatter-add of a large pair grid into a
     handful of bins serializes on atomics."""
@@ -317,10 +317,14 @@ def join_spatial(ds: R.ActiveDataset, cand: CandidateSet,
     pair_rows = torch.where(pair_valid, cand.rows[:, None], -1)
     pair_targets = torch.where(pair_valid, _arange(U, locs)[None, :], -1)
     num_results = pair_valid.sum(dtype=I32)
-    bids = torch.where(pair_valid, user_brokers[None, :], num_brokers)
-    pair_bytes = torch.where(pair_valid, int(payload_bytes), 0).to(I32)
-    broker_bytes = _broker_sums(pair_bytes, bids, num_brokers)
-    broker_results = _broker_sums(pair_valid.to(I32), bids, num_brokers)
+    # A pair's broker is its user's, so reduce the (Rm, U) grid over the
+    # tweets once and sum the U per-user counts per broker. Every pair
+    # carries the same payload: the byte sums are payload x count, equal to
+    # the reference's int32 sums modulo 2^32.
+    per_user = pair_valid.sum(dim=0, dtype=I32)                # (U,)
+    broker_results = _broker_sums(per_user, user_brokers, num_brokers)
+    broker_bytes = (broker_results.to(torch.int64)
+                    * int(payload_bytes)).to(I32)
     return ChannelResult(pair_rows.to(I32), pair_targets.to(I32), pair_valid,
                          torch.where(cand.valid, cand.rows, -1), cand.valid,
                          num_results, num_results, cand.scanned,

@@ -121,6 +121,20 @@ def test_spatial_join_matches_reference(world, scan, kernel):
     assert int(tres.num_results) > 0
 
 
+def test_spatial_broker_bytes_wrap_like_reference(world):
+    """Per-broker byte sums past 2^31 wrap exactly as the reference's int32
+    sums do (the port multiplies per-broker counts by the payload)."""
+    jcand, tcand = _candidates(world, "bad_index")
+    users, brokers = world["users"], world["brokers"]
+    payload = 2**30 + 7
+    jres = JPl.join_spatial(world["jds"], jcand, jnp.asarray(users),
+                            jnp.asarray(brokers), 10.0, payload, 3)
+    tres = TPl.join_spatial(world["tds"], tcand, torch.as_tensor(users),
+                            torch.as_tensor(brokers), 10.0, payload, 3)
+    assert_same_tuple(jres, tres, "spatial wrap")
+    assert int(tres.broker_results.max()) >= 2
+
+
 def test_slot_row_ids_and_compact(rng):
     for size, cap in ((0, 8), (5, 8), (8, 8), (21, 8)):
         jds = JR.ActiveDataset(jnp.zeros((cap, 10), jnp.int32),
