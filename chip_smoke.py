@@ -6,28 +6,43 @@
 Needs one CUDA card, nvcc and the repository's ``src/`` beside this file; it
 exits non-zero, printing no result, without them. Phases:
 
-1. Build the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc's
-   ``-Xptxas -v`` lines are printed) and hold each kernel against its plain
-   PyTorch version on the card, exactly, at the main path's shapes and on
-   edge cases; time each kernel's raw launches from one CUDA graph (and
-   its wrapper and plain version) with CUDA events beside its bound.
-2. The main path at a size users would call real: one engine, three
-   channels (TweetsAboutDrugs with 1,000,000 subscriptions,
+1. Build the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+   source, started together; the ``-Xptxas -v`` lines are printed) and hold
+   every kernel entry against its plain PyTorch version on the card,
+   exactly, on edge cases.
+2. The per-channel main path at a size users would call real: one engine,
+   three channels (TweetsAboutDrugs with 1,000,000 subscriptions,
    MostThreateningTweets with 200,000, TweetsAboutCrime3 over 10,000 users),
    40 ticks of 65,536 tweets (the 2M-row ring buffer wraps once), each tick
-   executing every channel under the fully optimized plan with broker
-   delivery. Checks per-stage delivery conservation, notified counts against
-   a numpy count, spatial hits against a numpy evaluation, and that both
-   kernels' launch counters advanced.
-3. Every plan: the seven plans of the paper's plan-equivalence test on both
-   backends over a second engine; all notify the same subscribers and match
-   the same rows.
+   executing every channel through ``execute_channel`` under the fully
+   optimized plan with broker delivery.
+3. The fused main path on the same configuration: ``execute_all(None,
+   deliver=True)`` with the two param channels on ``compact_pallas`` and
+   TweetsAboutCrime3 on ``pallas`` (two plan-groups per tick), then
+   ``drain_spilled()``, every tick. Both main paths check per-stage
+   delivery conservation (ring counters included), notified counts against
+   a numpy count, spatial hits against a numpy evaluation and each kernel's
+   launches per tick; the fused reports of the first tick must equal
+   ``execute_channel`` on a second engine built the same way.
+4. The compact join at a real grid: six TweetsAboutDrugs copies on a window
+   scan, flat layout, population-skewed subscriptions, 2% match, sized so
+   that ``join_compact``'s four output grids exceed 1 GB; ``compact_pallas``
+   against ``pallas``, count for count.
+5. Every plan: the seven plans of the paper's plan-equivalence test through
+   ``execute_channel`` on both padded backends and through ``execute_all``
+   on all four; all notify the same subscribers and match the same rows.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Last, every kernel entry is held against its plain version, exactly, and
+timed (a CUDA graph of wrapper calls, the wrapper and the plain version
+between CUDA events) beside its bound, on seeded inputs at the largest shape
+a path above gave it (each wrapper keeps that shape beside its launch
+count). The line before the last is a JSON object with one entry per kernel;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -68,19 +83,17 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(launch, iters: int = 100, replays: int = 5) -> float:
-    """Device milliseconds per kernel launch: ``launch(stream)`` enqueues
-    one raw launch (inputs and output already allocated); ``iters`` of them
-    are captured in one CUDA graph and replayed between CUDA events, so no
-    host work (wrapper checks, allocation, the ctypes call) sits between
-    the launches."""
-    launch(torch.cuda.current_stream().cuda_stream)
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls are captured
+    in one CUDA graph and replayed between CUDA events, so the graph holds
+    only what ``fn`` enqueues on the device (a kernel wrapper's launch) and
+    none of its host work (checks, allocation, the ctypes call)."""
+    fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        stream = torch.cuda.current_stream().cuda_stream
         for _ in range(iters):
-            launch(stream)
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -112,34 +125,33 @@ def channel_specs():
 # ---------------------------------------------------------------------------
 
 
-def kernel_parity(dev) -> dict:
+def edge_parity(dev) -> None:
+    """Exact parity of every kernel entry with its plain version on its edge
+    cases: ``predicate_filter`` on int32 extremes and ragged N (and against
+    the engine's ``evaluate_conditions``); ``predicate_filter_rows`` at C = 1
+    and 3 with ragged N; ``spatial_match`` in both forms on ragged shapes,
+    per-channel radii and +-FAR padding (dist^2 must be inf there, never
+    NaN, and no padded pair may hit); ``join_compact`` on S off every block
+    size, maxT = 1, no live target, no valid entry, both layouts and payloads
+    whose byte sums wrap past int32."""
     from repro_torch.core.predicates import (Predicate, compile_conditions,
                                              evaluate_conditions)
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels import _build
+    from repro_torch.kernels.join_compact import ops as jc_ops
+    from repro_torch.kernels.join_compact import ref as jc_ref
     from repro_torch.kernels.predicate_filter import ops as pf_ops
     from repro_torch.kernels.predicate_filter import ref as pf_ref
     from repro_torch.kernels.spatial_match import ops as sm_ops
 
-    lib = _build.library()
     rng = np.random.default_rng(SEED)
-    out = {}
-
-    # predicate_filter at the ingest shape: N = 65,536, F = 10, the main
-    # path's three channels
-    conds = compile_conditions([list(s.fixed_preds) for s in channel_specs()])
-    f, _ = syn.tweet_arrays(rng, 65536, t0=1)
-    f = syn.drug_tweak(f, rng, 0.05)
-    fields = torch.tensor(f, device=dev)
-    lo, hi, neq = (torch.tensor(a, device=dev)
-                   for a in pf_ops.canonical_arrays(conds, fields.shape[1]))
-    got = pf_ops.predicate_filter(fields, conds)
-    want = pf_ref.predicate_filter(fields, lo, hi, neq)
-    err = max_abs_err(got, want)
-    torch.cuda.synchronize()
-    assert err == 0 and torch.equal(got, evaluate_conditions(fields, conds)), \
-        "predicate_filter differs from its plain version"
-    # the int32-extreme rows and ragged lengths
+    specs = channel_specs()
+    conds = compile_conditions([list(s.fixed_preds) for s in specs])
+    f, _ = syn.tweet_arrays(rng, 4096, t0=1)
+    fields = torch.tensor(syn.drug_tweak(f, rng, 0.05), device=dev)
+    for n in (1, 7, 255, 257, 1000, 4096):
+        x = fields[:n].contiguous()
+        assert torch.equal(pf_ops.predicate_filter(x, conds),
+                           evaluate_conditions(x, conds)), f"ragged N={n}"
     edge = torch.tensor([[-2**31, 2**31 - 1, 0, 5, 0, 0, 0, 0, 0, 0]],
                         dtype=torch.int32, device=dev)
     econds = compile_conditions([[Predicate.parse(0, "<=", -2**31 + 1)],
@@ -148,69 +160,210 @@ def kernel_parity(dev) -> dict:
                                   Predicate.parse(3, "!=", 4)]])
     assert torch.equal(pf_ops.predicate_filter(edge, econds),
                        evaluate_conditions(edge, econds)), "int32 extremes"
-    for n in (1, 7, 255, 257, 1000):
-        x = fields[:n].contiguous()
-        assert torch.equal(pf_ops.predicate_filter(x, conds),
-                           evaluate_conditions(x, conds)), f"ragged N={n}"
-    n, nf, c = fields.shape[0], fields.shape[1], lo.shape[0]
-    pf_out = torch.empty((n, c), dtype=torch.bool, device=dev)
+    for c in (1, 3):
+        conds = compile_conditions([list(sp.fixed_preds)
+                                    for sp in (specs * 3)[:c]])
+        lo, hi, neq = (torch.tensor(a, device=dev)
+                       for a in pf_ops.canonical_arrays(conds, 10))
+        for n in (1, 255, 257, 1000, 70001):
+            x = torch.tensor(rng.integers(-3, 12, (c, n, 10)).astype(np.int32),
+                             device=dev)
+            x[..., 3] = torch.tensor(rng.integers(8, 11, (c, n)),
+                                     dtype=torch.int32, device=dev)
+            got = pf_ops.predicate_filter_rows(x, conds)
+            want = pf_ref.predicate_filter_rows(x, lo, hi, neq)
+            assert torch.equal(got, want), f"predicate_filter_rows C={c} N={n}"
 
-    def pf_raw(stream):
-        _build.check(lib.predicate_filter_launch(
-            fields.data_ptr(), lo.data_ptr(), hi.data_ptr(), neq.data_ptr(),
-            pf_out.data_ptr(), n, nf, c, stream), "predicate_filter")
+    def locs(*shape):
+        return torch.tensor(rng.uniform(-100, 100, (*shape, 2))
+                            .astype(np.float32), device=dev)
 
-    out["predicate_filter"] = dict(
-        shape=f"N={n} F={nf} C={c}", max_abs_err=err, ms=graph_ms(pf_raw),
-        wrapper_ms=cuda_ms(lambda: pf_ops.predicate_filter(fields, conds),
-                           200),
-        plain_ms=cuda_ms(lambda: pf_ref.predicate_filter(fields, lo, hi, neq),
-                         50),
-        bound_bytes=n * nf * 4 + 3 * c * nf * 4 + n * c,
-        bound_ops=4 * n * c * nf)
+    for r, u in ((1, 1), (1, 10000), (300, 700), (16383, 257)):
+        a, b = locs(r), locs(u)
+        assert torch.equal(sm_ops.spatial_match(a, b, 10.0),
+                           sm_ops.spatial_match_plain(a, b, 10.0)), \
+            f"spatial_match ragged {r}x{u}"
+    for c, r, u in ((1, 1, 1), (1, 300, 700), (3, 257, 10000), (3, 33, 257)):
+        t, us = locs(c, r), locs(c, u)
+        radius = torch.tensor(rng.uniform(5, 20, c).astype(np.float32),
+                              device=dev)
+        assert torch.equal(sm_ops.spatial_match(t, us, radius),
+                           sm_ops.spatial_match_plain(t, us, radius)), \
+            f"spatial_match stacked C={c} R={r} U={u}"
+    # the engine pads users at -FAR; the reference pads tweets at +FAR
+    far = sm_ops.FAR
+    t = torch.tensor([[far, far], [0.0, 0.0], [3.0, -4.0]], device=dev)
+    us = torch.tensor([[-far, -far], [0.5, 0.5], [-far, -far]], device=dev)
+    want = [[False, False, False], [False, True, False], [False, True, False]]
+    assert sm_ops.spatial_match(t, us, 10.0).tolist() == want
+    hit = sm_ops.spatial_match(t[None], us[None],
+                               torch.tensor([10.0], device=dev))
+    d2 = sm_ops.spatial_dist2_plain(t[None], us[None])
+    pad = torch.tensor([[[True, True, True], [True, False, True],
+                         [True, False, True]]], device=dev)
+    assert torch.isinf(d2[pad]).all() and not torch.isnan(d2).any(), d2
+    assert hit.tolist() == [want], hit.tolist()
 
-    # spatial_match at the spatial join's largest shape: R = 16,384
-    # candidate tweets x U = 10,000 users, r = 10
-    radius = 10.0
-    t = torch.tensor(rng.uniform(-100, 100, (16384, 2)).astype(np.float32),
-                     device=dev)
-    u = torch.tensor(rng.uniform(-100, 100, (10000, 2)).astype(np.float32),
-                     device=dev)
-    got = sm_ops.spatial_match(t, u, radius)
-    want = sm_ops.spatial_match_plain(t, u, radius)
-    err = max_abs_err(got, want)
+    for s_len, max_t in ((1, 1), (37, 5), (1000, 1), (4099, 33), (257, 64)):
+        args = [rng.integers(-1, 20, (s_len, max_t)).astype(np.int32),
+                rng.integers(0, max_t + 1, s_len).astype(np.int32),
+                rng.integers(0, 9, (s_len, max_t)).astype(np.int32),
+                rng.integers(0, 4, (s_len, max_t)).astype(np.int32),
+                rng.random(s_len) < 0.7,
+                (2 ** 31 - 1 - rng.integers(0, 40, s_len)).astype(np.int32)]
+        cases = [args, [np.full_like(args[0], -1)] + args[1:],
+                 args[:4] + [np.zeros_like(args[4])] + args[5:]]
+        for case in cases:
+            dv = [torch.tensor(a, device=dev) for a in case]
+            for aggregated in (False, True):
+                got = jc_ops.join_pairs(*dv, 4, aggregated)
+                want = jc_ref.join_pairs(*dv, 4, aggregated)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), \
+                        f"join_compact S={s_len} maxT={max_t}"
     torch.cuda.synchronize()
-    assert err == 0, "spatial_match differs from its plain version"
-    for r_, u_ in ((1, 1), (1, 10000), (300, 700), (16383, 257)):
-        a, b = t[:r_].contiguous(), u[:u_].contiguous()
-        assert torch.equal(sm_ops.spatial_match(a, b, radius),
-                           sm_ops.spatial_match_plain(a, b, radius)), \
-            f"ragged {r_}x{u_}"
-    far = torch.tensor([[sm_ops.FAR, sm_ops.FAR], [0.0, 0.0]], device=dev)
-    ufar = torch.tensor([[-sm_ops.FAR, -sm_ops.FAR], [0.5, 0.5]], device=dev)
-    hit = sm_ops.spatial_match(far, ufar, radius)
-    assert hit.tolist() == [[False, False], [False, True]], hit.tolist()
-    r, uu = t.shape[0], u.shape[0]
-    sm_out = torch.empty((r, uu), dtype=torch.bool, device=dev)
 
-    def sm_raw(stream):
-        _build.check(lib.spatial_match_launch(
-            t.data_ptr(), u.data_ptr(), sm_out.data_ptr(), r, uu,
-            sm_ops.radius2(radius), stream), "spatial_match")
 
-    out["spatial_match"] = dict(
-        shape=f"R={r} U={uu}", max_abs_err=err, ms=graph_ms(sm_raw, 20),
-        wrapper_ms=cuda_ms(lambda: sm_ops.spatial_match(t, u, radius), 50),
-        plain_ms=cuda_ms(lambda: sm_ops.spatial_match_plain(t, u, radius), 10),
-        bound_bytes=r * 8 + uu * 8 + r * uu,
-        bound_ops=7 * r * uu + 3 * (r + uu))
-    for k in out.values():
-        k["bound_ms"] = 1e3 * max(k["bound_bytes"] / HBM_BYTES_PER_S,
-                                  k["bound_ops"] / CUDA_CORE_OPS_PER_S)
-        k["bound_by"] = ("bytes" if k["bound_bytes"] / HBM_BYTES_PER_S
-                         >= k["bound_ops"] / CUDA_CORE_OPS_PER_S
-                         else "operations")
-    return out
+# Each case builds seeded inputs at the shape a path gave the entry and
+# returns its wrapper and plain version as calls on them, and the bytes and
+# operations of its bound.
+
+
+def conds_for(c: int):
+    from repro_torch.core.predicates import compile_conditions
+    return compile_conditions([list(sp.fixed_preds)
+                               for sp in (channel_specs() * c)[:c]])
+
+
+def case_predicate_filter(dev, rng, shape) -> dict:
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels.predicate_filter import ops as pf_ops
+    from repro_torch.kernels.predicate_filter import ref as pf_ref
+    n, f, c = shape
+    conds = conds_for(c)
+    x, _ = syn.tweet_arrays(rng, n, t0=1)
+    x = torch.tensor(syn.drug_tweak(x, rng, 0.05), device=dev)
+    assert x.shape == (n, f), x.shape
+    lo, hi, neq = (torch.tensor(a, device=dev)
+                   for a in pf_ops.canonical_arrays(conds, f))
+    return dict(wrapper=lambda: pf_ops.predicate_filter(x, conds),
+                plain=lambda: pf_ref.predicate_filter(x, lo, hi, neq),
+                bound_bytes=n * f * 4 + 3 * c * f * 4 + n * c,
+                bound_ops=4 * n * c * f)
+
+
+def case_predicate_filter_rows(dev, rng, shape) -> dict:
+    from repro_torch.kernels.predicate_filter import ops as pf_ops
+    from repro_torch.kernels.predicate_filter import ref as pf_ref
+    c, n, f = shape
+    conds = conds_for(c)
+    x = torch.tensor(rng.integers(0, 11, (c, n, f)).astype(np.int32),
+                     device=dev)
+    lo, hi, neq = (torch.tensor(a, device=dev)
+                   for a in pf_ops.canonical_arrays(conds, f))
+    return dict(wrapper=lambda: pf_ops.predicate_filter_rows(x, conds),
+                plain=lambda: pf_ref.predicate_filter_rows(x, lo, hi, neq),
+                bound_bytes=c * n * f * 4 + 3 * c * f * 4 + c * n,
+                bound_ops=4 * c * n * f)
+
+
+def case_spatial_match(dev, rng, shape) -> dict:
+    from repro_torch.kernels.spatial_match import ops as sm_ops
+    r, u = shape
+    t, us = (torch.tensor(rng.uniform(-100, 100, (k, 2)).astype(np.float32),
+                          device=dev) for k in (r, u))
+    return dict(wrapper=lambda: sm_ops.spatial_match(t, us, 10.0),
+                plain=lambda: sm_ops.spatial_match_plain(t, us, 10.0),
+                bound_bytes=r * 8 + u * 8 + r * u,
+                bound_ops=7 * r * u + 3 * (r + u))
+
+
+def case_spatial_match_stacked(dev, rng, shape) -> dict:
+    """The users past the main path's 10,000 are the engine's -FAR padding
+    of the user bucket."""
+    from repro_torch.kernels.spatial_match import ops as sm_ops
+    c, r, u = shape
+    t = torch.tensor(rng.uniform(-100, 100, (c, r, 2)).astype(np.float32),
+                     device=dev)
+    us = torch.full((c, u, 2), -sm_ops.FAR, dtype=torch.float32, device=dev)
+    real = min(u, MAIN["users"])
+    us[:, :real] = torch.tensor(
+        rng.uniform(-100, 100, (c, real, 2)).astype(np.float32), device=dev)
+    radius = torch.full((c,), 10.0, device=dev)
+    return dict(wrapper=lambda: sm_ops.spatial_match(t, us, radius),
+                plain=lambda: sm_ops.spatial_match_plain(t, us, radius),
+                bound_bytes=c * (r * 8 + u * 8 + 4 + r * u),
+                bound_ops=7 * c * r * u + 3 * c * (r + u))
+
+
+def case_join_compact(dev, rng, shape, aggregated: bool) -> dict:
+    from repro_torch.kernels.join_compact import ops as jc_ops
+    from repro_torch.kernels.join_compact import ref as jc_ref
+    s_len, max_t = shape
+    dv = [torch.tensor(a, device=dev) for a in (
+        rng.integers(-1, 16, (s_len, max_t), dtype=np.int32),
+        rng.integers(0, max_t + 1, s_len, dtype=np.int32),
+        rng.integers(0, 9, (s_len, max_t), dtype=np.int32),
+        rng.integers(0, 4, (s_len, max_t), dtype=np.int32),
+        rng.random(s_len) < 0.7,
+        rng.integers(1000, 40000, s_len, dtype=np.int32))]
+    return dict(wrapper=lambda: jc_ops.join_pairs(*dv, 4, aggregated),
+                plain=lambda: jc_ref.join_pairs(*dv, 4, aggregated),
+                bound_bytes=join_compact_bytes(*dv),
+                bound_ops=8 * s_len * max_t)
+
+
+def join_compact_bytes(tgt, tgt_n, members, brokers, valid, payload) -> int:
+    """The bytes ``join_compact`` must move on these inputs: its four
+    outputs (13 B an entry), 9 B of ``valid``, ``tgt_n`` and ``payload`` a
+    stream entry, and of the (S, maxT) inputs only what decides or fills a
+    live pair, in 32-B sectors (8 entries of a row): ``tgt`` where
+    ``valid[s]`` and ``t < tgt_n[s]``, ``members`` and ``brokers`` where the
+    pair is live."""
+    s_len, max_t = tgt.shape
+    col = torch.arange(max_t, device=tgt.device)
+    read = valid[:, None] & (col[None, :] < tgt_n[:, None])
+    live = read & (tgt >= 0)
+
+    def sectors(mask) -> int:
+        pad = mask.new_zeros((s_len, -max_t % 8))
+        return int(torch.cat([mask, pad], 1).view(s_len, -1, 8).any(-1).sum())
+
+    return (13 * s_len * max_t + 9 * s_len + 32 * sectors(read)
+            + 64 * sectors(live))
+
+
+def measure(case: dict, shape: str) -> dict:
+    """One kernel entry at one shape: held against its plain version
+    (``max_abs_err``); ``ms`` from a CUDA graph of wrapper calls (only what
+    the wrapper enqueues, so no host work sits between the launches),
+    ``wrapper_ms`` and ``plain_ms`` from calls between CUDA events; beside
+    its bound."""
+    got, want = case["wrapper"](), case["plain"]()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    del got, want
+    k = with_bound(dict(shape=shape, max_abs_err=err,
+                        bound_bytes=case["bound_bytes"],
+                        bound_ops=case["bound_ops"]))
+    # about 10 ms of kernel at the bound per timing, 5 to 100 calls
+    iters = int(min(100, max(5, 10 / k["bound_ms"])))
+    k.update(ms=graph_ms(case["wrapper"], iters),
+             wrapper_ms=cuda_ms(case["wrapper"], iters),
+             plain_ms=cuda_ms(case["plain"], max(3, iters // 10)))
+    torch.cuda.empty_cache()
+    return k
+
+
+def with_bound(k: dict) -> dict:
+    """Add ``bound_ms`` (the larger of bytes over the memory rate and
+    operations over the CUDA cores' rate) and ``bound_by`` to a timing."""
+    by_bytes = k["bound_bytes"] / HBM_BYTES_PER_S
+    by_ops = k["bound_ops"] / CUDA_CORE_OPS_PER_S
+    k["bound_ms"] = 1e3 * max(by_bytes, by_ops)
+    k["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    return k
 
 
 # ---------------------------------------------------------------------------
@@ -219,11 +372,14 @@ def kernel_parity(dev) -> dict:
 
 
 def check_conservation(rep) -> None:
+    """Per stage: delivered + spilled + dropped == produced, where produced
+    counts this tick's fresh pairs plus the retry-ring entries re-presented
+    (none on the per-channel path)."""
     s = rep.overflow
     assert s.delivered_pairs + s.spilled_pairs + s.dropped_pairs \
-        == rep.num_results, (rep.channel, s)
+        == rep.num_results + s.retried_pairs, (rep.channel, s)
     assert s.delivered_sids + s.spilled_sids + s.dropped_sids \
-        == rep.num_notified, (rep.channel, s)
+        == rep.num_notified + s.retried_sids, (rep.channel, s)
     assert sum(s.delivered_pairs_broker) == s.delivered_pairs, (rep.channel, s)
 
 
@@ -237,17 +393,13 @@ def spatial_hits_numpy(t: np.ndarray, u: np.ndarray, radius: float) -> int:
     return int((dist2 < np.float32(radius) ** 2).sum())
 
 
-def main_path(dev, cfg: dict) -> dict:
-    from repro_torch.core import records as R
+def build_main_engine(dev, cfg: dict, rng):
+    """The main path's engine: three channels, the population-skewed
+    subscriptions of the two param channels on 4 brokers, and the users.
+    Returns (engine, specs, per-state subscription counts, users)."""
     from repro_torch.core.engine import BADEngine
-    from repro_torch.core.plans import ExecutionFlags
-    from repro_torch.core.predicates import compile_conditions
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels.predicate_filter import ops as pf_ops
-    from repro_torch.kernels.spatial_match import ops as sm_ops
 
-    rng = np.random.default_rng(SEED + 1)
-    t_setup = time.perf_counter()
     eng = BADEngine(dataset_capacity=cfg["dataset_capacity"],
                     index_capacity=cfg["index_capacity"],
                     max_window=cfg["max_window"],
@@ -255,28 +407,90 @@ def main_path(dev, cfg: dict) -> dict:
                     brokers=tuple(f"Broker{i}" for i in range(4)),
                     max_deliver_pairs=cfg["max_deliver_pairs"],
                     max_notify=cfg["max_notify"], use_pallas=True, device=dev)
-    drugs, threat, crime = channel_specs()
-    for spec in (drugs, threat, crime):
+    specs = channel_specs()
+    for spec in specs:
         eng.create_channel(spec)
     sub_counts = {}
-    for spec, n in ((drugs, cfg["drug_subs"]), (threat, cfg["threat_subs"])):
+    for spec, n in ((specs[0], cfg["drug_subs"]),
+                    (specs[1], cfg["threat_subs"])):
         params, brokers = syn.subscriptions_by_population(rng, n, 4)
         eng.subscribe_bulk(spec.name, params, brokers)
         sub_counts[spec.name] = np.bincount(params, minlength=50)
     users = rng.uniform(-100, 100, (cfg["users"], 2)).astype(np.float32)
     eng.set_user_locations(users, rng.integers(0, 4, cfg["users"]))
-    setup_s = time.perf_counter() - t_setup
+    return eng, specs, sub_counts, users
 
-    one = {s.name: compile_conditions([list(s.fixed_preds)])
-           for s in (drugs, threat, crime)}
+
+def check_numpy(rep, spec, f, loc, one, sub_counts, users, spatial: bool):
+    """Notified count of a param channel against numpy; with ``spatial``,
+    the spatial channel's hits against the numpy expansion form."""
+    match = _host_match(f, one[spec.name])
+    if spec.join == "param":
+        want = int(sub_counts[spec.name][f[match, spec.param_field]].sum())
+        assert rep.num_notified == want, (spec.name, rep.num_notified, want)
+    elif spatial:
+        want = spatial_hits_numpy(loc[match], users, spec.spatial_radius)
+        assert rep.num_results == want, (rep.num_results, want)
+
+
+# each kernel entry: its module, and the names of its launch count and of
+# the largest shape it launched
+ENTRIES = {
+    "predicate_filter": ("predicate_filter", "LAUNCHES", "SHAPE"),
+    "predicate_filter_rows": ("predicate_filter", "ROWS_LAUNCHES",
+                              "ROWS_SHAPE"),
+    "spatial_match": ("spatial_match", "LAUNCHES", "SHAPE"),
+    "spatial_match_stacked": ("spatial_match", "STACKED_LAUNCHES",
+                              "STACKED_SHAPE"),
+    "join_compact": ("join_compact", "LAUNCHES", "SHAPE"),
+}
+
+
+def _ops(module: str):
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{module}.ops")
+
+
+def launch_counts() -> dict:
+    return {k: getattr(_ops(m), n) for k, (m, n, _) in ENTRIES.items()}
+
+
+def launch_shapes() -> dict:
+    return {k: getattr(_ops(m), sh) for k, (m, _, sh) in ENTRIES.items()}
+
+
+def reset_launch_counts() -> None:
+    """Every launch count to 0 and every largest shape to None."""
+    for module, count, shape in ENTRIES.values():
+        setattr(_ops(module), count, 0)
+        setattr(_ops(module), shape, None)
+
+
+def since(before: dict) -> dict:
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def main_path(dev, cfg: dict) -> dict:
+    """Phase 2: every channel through ``execute_channel`` each tick."""
+    from repro_torch.core import records as R
+    from repro_torch.core.plans import ExecutionFlags
+    from repro_torch.core.predicates import compile_conditions
+    from repro_torch.data import synthetic as syn
+
+    rng = np.random.default_rng(SEED + 1)
+    t_setup = time.perf_counter()
+    eng, specs, sub_counts, users = build_main_engine(dev, cfg, rng)
+    setup_s = time.perf_counter() - t_setup
+    drugs, threat, crime = specs
+    one = {s.name: compile_conditions([list(s.fixed_preds)]) for s in specs}
     flags = ExecutionFlags.fully_optimized()
-    pf_ops.LAUNCHES = 0
-    sm_ops.LAUNCHES = 0
+    reset_launch_counts()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     tick_s, ingest_s, reports = [], [], 0
-    exec_s = {s.name: [] for s in (drugs, threat, crime)}
+    exec_s = {s.name: [] for s in specs}
     totals = dict(results=0, notified=0, delivered_pairs=0, delivered_sids=0)
     for tick in range(cfg["ticks"]):
         f, loc = syn.tweet_arrays(rng, cfg["tick_rows"], t0=1 + tick * 100)
@@ -288,35 +502,27 @@ def main_path(dev, cfg: dict) -> dict:
             torch.cuda.synchronize(dev)
         ingest_s.append(time.perf_counter() - ts)
         reps = []
-        for spec in (drugs, threat, crime):
+        for spec in specs:
             te = time.perf_counter()
             reps.append(eng.execute_channel(spec.name, flags, deliver=True))
             exec_s[spec.name].append(time.perf_counter() - te)
         tick_s.append(time.perf_counter() - ts)
         # checks, outside the timed tick
-        for spec, rep in zip((drugs, threat, crime), reps):
+        for spec, rep in zip(specs, reps):
             check_conservation(rep)
             reports += 1
             for k in ("results", "notified"):
                 totals[k] += getattr(rep, f"num_{k}")
             totals["delivered_pairs"] += rep.overflow.delivered_pairs
             totals["delivered_sids"] += rep.overflow.delivered_sids
-            match = _host_match(f, one[spec.name])
-            if spec.join == "param":
-                want = int(sub_counts[spec.name][f[match, spec.param_field]]
-                           .sum())
-                assert rep.num_notified == want, (tick, spec.name,
-                                                  rep.num_notified, want)
-            elif tick in cfg["spatial_check_ticks"]:
-                want = spatial_hits_numpy(loc[match], users,
-                                          spec.spatial_radius)
-                assert rep.num_results == want, (tick, rep.num_results, want)
+            check_numpy(rep, spec, f, loc, one, sub_counts, users,
+                        tick in cfg["spatial_check_ticks"])
     wall = time.perf_counter() - t0
-    launches = {"predicate_filter": pf_ops.LAUNCHES,
-                "spatial_match": sm_ops.LAUNCHES}
+    launches = launch_counts()
     if dev.type == "cuda":
-        assert launches["predicate_filter"] == cfg["ticks"], launches
-        assert launches["spatial_match"] == cfg["ticks"], launches
+        want = dict.fromkeys(launches, 0)
+        want.update(predicate_filter=cfg["ticks"], spatial_match=cfg["ticks"])
+        assert launches == want, launches
     return dict(setup_s=setup_s, wall_s=wall, ticks=cfg["ticks"],
                 tick_ms_mean=1e3 * float(np.mean(tick_s)),
                 tick_ms_p50=1e3 * float(np.median(tick_s)),
@@ -324,9 +530,133 @@ def main_path(dev, cfg: dict) -> dict:
                 ingest_ms_mean=1e3 * float(np.mean(ingest_s)),
                 exec_ms_mean={k: 1e3 * float(np.mean(v))
                               for k, v in exec_s.items()},
-                reports=reports, launches=launches, totals=totals,
-                rows_ingested=eng.size_host,
+                reports=reports, launches=launches, shapes=launch_shapes(),
+                totals=totals, rows_ingested=eng.size_host,
                 wrapped=eng.size_host > cfg["dataset_capacity"])
+
+
+def fused_plans():
+    """The fused main path's assignment: the two param channels on the
+    compacted join with the join_compact kernel, TweetsAboutCrime3 on the
+    padded kernels; two plan-groups per tick."""
+    from repro_torch.core.plans import ChannelPlan
+    drugs, threat, crime = channel_specs()
+    compact = ChannelPlan("bad_index", True, True, "compact_pallas")
+    return {drugs.name: compact, threat.name: compact,
+            crime.name: ChannelPlan("bad_index", True, True, "pallas")}
+
+
+def fused_path(dev, cfg: dict) -> dict:
+    """Phase 3: ``execute_all(None, deliver=True)`` then ``drain_spilled``
+    each tick, on the main path's engine and data."""
+    from repro_torch.core import records as R
+    from repro_torch.core.predicates import compile_conditions
+    from repro_torch.data import synthetic as syn
+
+    rng = np.random.default_rng(SEED + 1)
+    t_setup = time.perf_counter()
+    eng, specs, sub_counts, users = build_main_engine(dev, cfg, rng)
+    for name, plan in fused_plans().items():
+        eng.set_plan(name, plan)
+    setup_s = time.perf_counter() - t_setup
+    one = {s.name: compile_conditions([list(s.fixed_preds)]) for s in specs}
+    groups = {}
+    for name, plan in fused_plans().items():
+        groups.setdefault(plan.backend, []).append(name)
+    reset_launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tick_s, ingest_s, drain_s = [], [], []
+    group_ms = {b: [] for b in groups}
+    totals = dict(results=0, notified=0, delivered_pairs=0, delivered_sids=0,
+                  retried_sids=0, redelivered_sids=0)
+    first = None
+    for tick in range(cfg["ticks"]):
+        f, loc = syn.tweet_arrays(rng, cfg["tick_rows"], t0=1 + tick * 100)
+        f = syn.drug_tweak(f, rng, 0.05)
+        before = launch_counts()
+        ts = time.perf_counter()
+        eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ingest_s.append(time.perf_counter() - ts)
+        reps = eng.execute_all(None, deliver=True)
+        td = time.perf_counter()
+        drained = eng.drain_spilled()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        drain_s.append(time.perf_counter() - td)
+        tick_s.append(time.perf_counter() - ts)
+        got = since(before)
+        if dev.type == "cuda":
+            want = dict.fromkeys(got, 0)
+            want.update(predicate_filter=1, spatial_match_stacked=1,
+                        join_compact=1)
+            assert got == want, (tick, got)
+        for b, names in groups.items():
+            group_ms[b].append(1e3 * sum(reps[n].wall_time_s for n in names))
+        for spec in specs:
+            rep = reps[spec.name]
+            check_conservation(rep)
+            totals["results"] += rep.num_results
+            totals["notified"] += rep.num_notified
+            totals["delivered_pairs"] += rep.overflow.delivered_pairs
+            totals["delivered_sids"] += rep.overflow.delivered_sids
+            totals["retried_sids"] += rep.overflow.retried_sids
+            check_numpy(rep, spec, f, loc, one, sub_counts, users,
+                        tick in cfg["spatial_check_ticks"])
+        totals["redelivered_sids"] += sum(d.stats.delivered_sids
+                                          for d in drained.values())
+        if tick == 0:
+            first = (f, loc, {n: (r.num_results, r.num_notified, r.scanned,
+                                  r.broker_bytes.tolist(),
+                                  r.overflow.delivered_pairs,
+                                  r.overflow.delivered_sids,
+                                  r.overflow.produced_pairs,
+                                  r.overflow.produced_sids)
+                              for n, r in reps.items()})
+        del reps, drained
+    wall = time.perf_counter() - t0
+    launches, shapes = launch_counts(), launch_shapes()
+    ring = (eng.ring_pending_pairs(), eng.ring_pending_sids())
+    queue = (eng.spill.pending_pairs(), eng.spill.pending_sids())
+    rows = eng.size_host
+    del eng
+    return dict(setup_s=setup_s, wall_s=wall, ticks=cfg["ticks"],
+                tick_ms_mean=1e3 * float(np.mean(tick_s)),
+                tick_ms_p50=1e3 * float(np.median(tick_s)),
+                tick_ms_max=1e3 * float(np.max(tick_s)),
+                ingest_ms_mean=1e3 * float(np.mean(ingest_s)),
+                drain_ms_mean=1e3 * float(np.mean(drain_s)),
+                exec_ms_mean={b: float(np.mean(v))
+                              for b, v in group_ms.items()},
+                groups=groups, launches=launches, shapes=shapes,
+                totals=totals, ring_pending=ring, queue_pending=queue, first=first,
+                rows_ingested=rows,
+                wrapped=rows > cfg["dataset_capacity"])
+
+
+def same_as_per_channel(dev, cfg: dict, first) -> int:
+    """The fused reports of the first tick equal ``execute_channel`` on a
+    second engine built by the same calls: counts, bytes, and the delivered
+    and produced pairs and sIDs (the ring was empty on that tick)."""
+    from repro_torch.core import records as R
+
+    f, loc, fused = first
+    rng = np.random.default_rng(SEED + 1)
+    eng, specs, _, _ = build_main_engine(dev, cfg, rng)
+    eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+    for name, plan in fused_plans().items():
+        r = eng.execute_channel(name, plan.flags, deliver=True,
+                                backend=plan.backend)
+        got = (r.num_results, r.num_notified, r.scanned,
+               r.broker_bytes.tolist(), r.overflow.delivered_pairs,
+               r.overflow.delivered_sids, r.overflow.produced_pairs,
+               r.overflow.produced_sids)
+        assert got == fused[name], (name, got, fused[name])
+    del eng
+    return len(fused)
 
 
 def _host_match(f: np.ndarray, conds) -> np.ndarray:
@@ -340,14 +670,97 @@ def _host_match(f: np.ndarray, conds) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: every plan on both backends
+# phase 4: the compact join at a real grid
 # ---------------------------------------------------------------------------
+
+
+def compact_phase(dev, cfg: dict) -> dict:
+    """Six TweetsAboutDrugs copies on a window scan, flat layout, skewed
+    subscriptions and 2% match (the workload of
+    ``benchmarks/compact_join.py``), on ``compact_pallas`` and on ``pallas``
+    with the same data: per channel and tick, results, notified, scanned and
+    broker bytes must agree. Each engine runs its ticks alone on the card."""
+    from repro_torch.core import records as R
+    from repro_torch.core.channel import tweets_about_drugs
+    from repro_torch.core.engine import BADEngine
+    from repro_torch.core.plans import ChannelPlan
+    from repro_torch.data import synthetic as syn
+
+    out = {}
+    cuda = dev.type == "cuda"
+    for backend in ("compact_pallas", "pallas"):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        rng = np.random.default_rng(SEED + 3)
+        eng = BADEngine(dataset_capacity=cfg["dataset_capacity"],
+                        index_capacity=cfg["index_capacity"],
+                        max_window=cfg["tick_rows"],
+                        max_candidates=cfg["max_candidates"],
+                        brokers=tuple(f"B{i}" for i in range(4)),
+                        use_pallas=True, device=dev)
+        plan = ChannelPlan("window", False, True, backend)
+        for i in range(cfg["channels"]):
+            name = f"SparseDrugs{i}"
+            eng.create_channel(dataclasses.replace(tweets_about_drugs(),
+                                                   name=name))
+            params, brokers = syn.subscriptions_by_population(
+                rng, cfg["subs"], 4)
+            eng.subscribe_bulk(name, params, brokers)
+            eng.set_plan(name, plan)
+        walls, counts = [], []
+        reset_launch_counts()
+        for tick in range(cfg["ticks"]):
+            f, loc = syn.tweet_arrays(rng, cfg["tick_rows"],
+                                      t0=1 + tick * 100)
+            f = syn.drug_tweak(f, rng, cfg["match"])
+            eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+            eng._sync()
+            t0 = time.perf_counter()
+            reps = eng.execute_all(None)
+            eng._sync()
+            walls.append(time.perf_counter() - t0)
+            counts.append({n: (r.num_results, r.num_notified, r.scanned,
+                               r.broker_bytes.tolist())
+                           for n, r in reps.items()})
+            del reps
+        out[backend] = dict(walls_ms=[1e3 * w for w in walls],
+                            counts=counts, launches=launch_counts(),
+                            shapes=launch_shapes(),
+                            peak_gib=torch.cuda.max_memory_allocated(dev)
+                            / 2 ** 30 if cuda else 0.0)
+        del eng
+    assert out["compact_pallas"]["counts"] == out["pallas"]["counts"], \
+        "compact_pallas and pallas disagree"
+    if cuda:     # a tick: ingest, one window discovery, one join
+        for backend in out:
+            want = dict.fromkeys(ENTRIES, 0)
+            want.update(predicate_filter=cfg["ticks"],
+                        predicate_filter_rows=cfg["ticks"])
+            if backend == "compact_pallas":
+                want["join_compact"] = cfg["ticks"]
+            assert out[backend]["launches"] == want, \
+                (backend, out[backend]["launches"])
+    results = sum(v[0] for c in out["pallas"]["counts"] for v in c.values())
+    return dict(out, results=results)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: every plan on every backend
+# ---------------------------------------------------------------------------
+
+
+PLANS_7 = [("full", False, False), ("window", False, False),
+           ("trad_index", False, False), ("bad_index", False, False),
+           ("bad_index", True, False), ("bad_index", True, True),
+           ("window", True, True)]
 
 
 def every_plan(dev, cfg: dict) -> dict:
     from repro_torch.core import records as R
     from repro_torch.core.engine import BADEngine
-    from repro_torch.core.plans import ExecutionFlags
+    from repro_torch.core.plans import BACKENDS, ExecutionFlags, \
+        ExecutionRequest
     from repro_torch.data import synthetic as syn
 
     rng = np.random.default_rng(SEED + 2)
@@ -371,36 +784,55 @@ def every_plan(dev, cfg: dict) -> dict:
         f, loc = syn.tweet_arrays(rng, cfg["tick_rows"], t0=1 + tick * 100)
         f = syn.drug_tweak(f, rng, 0.05)
         eng.ingest(R.RecordBatch.from_numpy(f, grid(loc), device=dev))
-    plans = [ExecutionFlags.original(),
-             ExecutionFlags(scan_mode="window"),
-             ExecutionFlags(scan_mode="trad_index"),
-             ExecutionFlags(scan_mode="bad_index"),
-             ExecutionFlags(scan_mode="bad_index", aggregation=True),
-             ExecutionFlags(scan_mode="bad_index", aggregation=True,
-                            param_pushdown=True),
-             ExecutionFlags(scan_mode="window", aggregation=True,
-                            param_pushdown=True)]
+    plans = [ExecutionFlags(*p) for p in PLANS_7]
+
+    def summary(rep):
+        res = rep.result
+        return rep.num_notified, set(res.matched_rows[res.matched_valid]
+                                     .tolist())
+
     t0 = time.perf_counter()
     runs = 0
-    out = {}
+    seen = {}
     for name in (drugs.name, crime.name):
-        seen = None
         for backend in ("oracle", "pallas"):
             for flags in plans:
-                rep = eng.execute_channel(name, flags, advance=False,
-                                          backend=backend)
-                res = rep.result
-                rows = set(res.matched_rows[res.matched_valid].tolist())
-                got = (rep.num_notified, rows)
-                if seen is None:
-                    seen = got
-                assert got[0] == seen[0], (name, backend, flags, got[0],
-                                           seen[0])
-                assert got[1] == seen[1], (name, backend, flags)
+                got = summary(eng.execute_channel(name, flags, advance=False,
+                                                  backend=backend))
+                want = seen.setdefault(name, got)
+                assert got == want, (name, backend, flags, got[0], want[0])
                 runs += 1
-                del rep, res
-        out[name] = dict(notified=seen[0], matched_rows=len(seen[1]))
-    return dict(runs=runs, wall_s=time.perf_counter() - t0, channels=out)
+    # the fused path: every plan on every backend, one call per run
+    reset_launch_counts()
+    want_launches = dict.fromkeys(launch_counts(), 0)
+    for backend in BACKENDS:
+        for flags in plans:
+            reps = eng.execute(ExecutionRequest(flags=flags, backend=backend,
+                                                advance=False))
+            for name in (drugs.name, crime.name):
+                got = summary(reps[name])
+                assert got == seen[name], (name, backend, flags, got[0],
+                                           seen[name][0])
+            runs += 1
+            if backend in ("pallas", "compact_pallas"):
+                # two join groups (param, spatial), each discovering once
+                key = {"full": "predicate_filter", "window":
+                       "predicate_filter_rows", "trad_index":
+                       "predicate_filter_rows"}.get(flags.scan_mode)
+                if key:
+                    want_launches[key] += 2
+                if backend == "pallas":
+                    want_launches["spatial_match_stacked"] += 1
+                else:
+                    want_launches["join_compact"] += 1
+            del reps
+    launches = launch_counts()
+    if dev.type == "cuda":
+        assert launches == want_launches, (launches, want_launches)
+    out = {n: dict(notified=v[0], matched_rows=len(v[1]))
+           for n, v in seen.items()}
+    return dict(runs=runs, wall_s=time.perf_counter() - t0, channels=out,
+                fused_launches=launches)
 
 
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
@@ -408,6 +840,12 @@ MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
             drug_subs=1_000_000, threat_subs=200_000, users=10_000,
             ticks=40, tick_rows=65536, spatial_check_ticks=(0, 39))
+# join_compact's four (S, maxT) output grids: S = 8,192 (about 4,800 live
+# candidates over six channels), maxT = 16,384 (the top state holds about
+# 11,900 of 100,000 flat subscriptions): 13 B x 134M entries = 1.74 GB
+COMPACT = dict(channels=6, subs=100_000, tick_rows=28672, ticks=3,
+               match=0.02, dataset_capacity=1 << 18, index_capacity=1 << 15,
+               max_candidates=1 << 12)
 PLANS = dict(dataset_capacity=1 << 18, index_capacity=1 << 16,
              max_window=1 << 14, max_candidates=1 << 14,
              drug_subs=50_000, users=10_000, ticks=2, tick_rows=8192)
@@ -434,14 +872,9 @@ def main() -> int:
     _build.library()
 
     t = time.perf_counter()
-    kernels = kernel_parity(dev)
-    print(f"[parity] exact at the main path's shapes and edges in "
+    edge_parity(dev)
+    print(f"[parity] exact on the edge cases in "
           f"{time.perf_counter() - t:.1f} s")
-    for name, k in kernels.items():
-        print(f"[kernel] {name} {k['shape']}: {k['ms']:.4f} ms (graph of "
-              f"raw launches), wrapper {k['wrapper_ms']:.4f} ms, plain "
-              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})")
 
     torch.cuda.reset_peak_memory_stats(dev)
     mp = main_path(dev, MAIN)
@@ -457,25 +890,95 @@ def main() -> int:
     print(f"[main] max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fp = fused_path(dev, MAIN)
+    fp["same"] = same_as_per_channel(dev, MAIN, fp.pop("first"))
+    print(f"[fused] setup {fp['setup_s']:.1f} s; {fp['ticks']} ticks in "
+          f"{fp['wall_s']:.2f} s: per tick mean {fp['tick_ms_mean']:.2f} ms,"
+          f" p50 {fp['tick_ms_p50']:.2f} ms, max {fp['tick_ms_max']:.2f} ms;"
+          f" rows ingested {fp['rows_ingested']} (ring wrapped: "
+          f"{fp['wrapped']})")
+    print(f"[fused] per tick: ingest {fp['ingest_ms_mean']:.2f} ms, "
+          f"execute_all+deliver per plan-group (ms) "
+          f"{json.dumps(fp['exec_ms_mean'])} for {json.dumps(fp['groups'])},"
+          f" drain_spilled {fp['drain_ms_mean']:.2f} ms")
+    print(f"[fused] totals {json.dumps(fp['totals'])}; ring pending "
+          f"{fp['ring_pending']}, queue pending {fp['queue_pending']}")
+    print(f"[fused] launches {json.dumps(fp['launches'])} (1 predicate_filter"
+          f", 1 spatial_match_stacked, 1 join_compact per tick); largest "
+          f"shapes {json.dumps(fp['shapes'])}; tick 0 equal to "
+          f"execute_channel for {fp['same']} channels")
+    print(f"[fused] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    cp = compact_phase(dev, COMPACT)
+    cjp = cp["compact_pallas"]
+    s_len, max_t = cjp["shapes"]["join_compact"]
+    print(f"[compact] six channels, window scan, flat layout: S={s_len} "
+          f"maxT={max_t}, join_compact outputs {13 * s_len * max_t / 1e9:.3f}"
+          f" GB; {cp['results']} results, equal on both backends")
+    for b in ("compact_pallas", "pallas"):
+        print(f"[compact] {b}: execute_all per tick (ms) "
+              f"{json.dumps([round(w, 3) for w in cp[b]['walls_ms']])}, "
+              f"launches {json.dumps(cp[b]['launches'])}, "
+              f"max_memory_allocated {cp[b]['peak_gib']:.2f} GiB")
+
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     ep = every_plan(dev, PLANS)
     print(f"[plans] {ep['runs']} runs in {ep['wall_s']:.2f} s, all plans "
-          f"equal: {json.dumps(ep['channels'])}; max_memory_allocated "
+          f"equal: {json.dumps(ep['channels'])}; fused launches "
+          f"{json.dumps(ep['fused_launches'])}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
-    replaces = {"predicate_filter":
-                "src/repro/kernels/predicate_filter/kernel.py:45",
-                "spatial_match": "src/repro/kernels/spatial_match/kernel.py:33"}
-    line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": mp["launches"][name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "wrapper_ms": k["wrapper_ms"],
-         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None, "shape": k["shape"]}
-        for name, k in kernels.items()]}
-    print(json.dumps(line))
+    # each entry is timed at the largest shape a path gave it and reports
+    # that path's launches: (entry, path, where, shape format, case)
+    timed = [
+        ("predicate_filter", fp, "fused main path", "N={} F={} C={}",
+         case_predicate_filter),
+        ("predicate_filter_rows", cjp, "compact phase (compact_pallas)",
+         "C={} N={} F={}", case_predicate_filter_rows),
+        ("spatial_match", mp, "per-channel main path", "R={} U={}",
+         case_spatial_match),
+        ("spatial_match_stacked", fp, "fused main path", "C={} R={} U={}",
+         case_spatial_match_stacked),
+        ("join_compact", fp, "fused main path", "S={} maxT={}",
+         functools.partial(case_join_compact, aggregated=True)),
+        ("join_compact", cjp, "compact phase (compact_pallas)",
+         "S={} maxT={}", functools.partial(case_join_compact,
+                                           aggregated=False)),
+    ]
+    replaces = {
+        "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
+        "spatial_match": "src/repro/kernels/spatial_match/kernel.py:33",
+        "join_compact": "src/repro/kernels/join_compact/kernel.py:47"}
+    rng = np.random.default_rng(SEED + 7)
+    measured = []
+    for name, path, where, fmt, case in timed:
+        shape = path["shapes"][name]
+        k = measure(case(dev, rng, shape), fmt.format(*shape))
+        print(f"[kernel] {name} {k['shape']} ({where}): {k['ms']:.4f} ms "
+              f"(graph of wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}, {k['bound_bytes']} B), max_abs_err "
+              f"{k['max_abs_err']}")
+        module = ENTRIES[name][0]
+        measured.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{module}.cu",
+            "replaces": replaces[module], "launches": path["launches"][name],
+            "launches_on": where, **{key: k[key] for key in (
+                "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                "bound_by")}, "library_ms": None, "shape": k["shape"]})
+    # join_compact's second row is its run at the compact phase's real grid
+    *entries, real_grid = measured
+    entries[-1]["real_grid"] = {key: real_grid[key] for key in (
+        "shape", "launches", "launches_on", "max_abs_err", "ms",
+        "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
+    assert all(e["max_abs_err"] == 0 and e["launches"] > 0
+               for e in measured), measured
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

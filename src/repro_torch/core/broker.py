@@ -1,4 +1,4 @@
-"""Broker subsystem (paper §3.2, §4.1.2, Table 2): ring-less fused delivery.
+"""Broker subsystem (paper §3.2, §4.1.2, Table 2).
 
 Brokers are HTTP endpoints in the real platform; here they are simulated but
 their *work* is real and measurable, mirroring Table 2's three stages:
@@ -15,9 +15,17 @@ single-channel engine calls them at C == 1). They are gather-formulated:
 each output slot binary-searches its source pair in per-channel prefix sums
 (batched ``torch.searchsorted(..., right=True)`` over (C, P) rows), so the
 work is proportional to the delivery capacity, not to the padded pair grid.
-Whatever misses a delivery buffer lands, with its channel identity, in flat
-channel-major spill streams for the engine's host-side SpillQueue. The
-device-resident retry ring of the reference is not ported yet.
+Whatever misses a delivery buffer lands, with its channel identity, in the
+device-resident ``RetryRing`` when the caller passes one (re-packed and
+re-delivered ahead of the fresh result on the NEXT call, epoch-masked
+staleness) and past its window in flat channel-major spill streams for the
+engine's host-side SpillQueue. A ring-aware call builds its successor ring
+as new tensors and never writes to the ring it was given, so a caller may
+discard a run and present the same ring again.
+
+``pack_payloads`` / ``fanout_sids`` are the per-channel convert and send
+stages (one channel's result, scatter-formulated as in the reference);
+the engine's ``drain_spilled`` re-delivers through them.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.core import plans
 from repro_torch.core.plans import ChannelResult
+from repro_torch.device import DeviceLike, resolve_device
 
 HEADER_WORDS = 4  # [row_id, target_idx, member_count, payload_words]
 I32 = torch.int32
@@ -56,9 +65,11 @@ class DeliveryStats:
 
     Conservation, per stage: delivered + spilled + dropped == produced.
     ``overflow_*`` keeps the pre-spill-queue view (everything that missed the
-    delivery buffer, recoverable or not). The retry and ranking counters are
-    the reference's fields for its retry ring and enrichment stage; both stay
-    0 until those stages are ported."""
+    delivery buffer, recoverable or not). ``retried_*`` count retry-ring
+    entries RE-presented this call (counted as spilled by an earlier call):
+    produced == fresh + retried, so the identity telescopes across ticks.
+    The ranking counters belong to the enrichment stage, which is not
+    ported yet; they stay 0."""
 
     delivered_pairs: int
     spilled_pairs: int
@@ -143,14 +154,138 @@ class FanoutDelivery(NamedTuple):
     produced: torch.Tensor    # (C,) int32 member sIDs (pre-cap)
 
 
+class RetryRing(NamedTuple):
+    """Device-resident retry state for fused delivery: per-channel windows
+    (C, W) of overflowed pairs -- with the subscription EPOCH each indexes,
+    for staleness masking -- and overflowed sIDs (never stale). Entries are
+    stored as compacted prefixes (``*_count`` gives each channel's live
+    prefix). The ring is an INPUT and an OUTPUT of ``deliver_all``."""
+
+    pair_rows: torch.Tensor      # (C, W) int32
+    pair_targets: torch.Tensor   # (C, W) int32
+    pair_epochs: torch.Tensor    # (C, W) int32
+    pair_count: torch.Tensor     # (C,) int32
+    sid_values: torch.Tensor     # (C, W) int32
+    sid_count: torch.Tensor      # (C,) int32
+
+    @property
+    def window(self) -> int:
+        return self.pair_rows.shape[1]
+
+
+def empty_ring(num_channels: int, window: int,
+               device: DeviceLike = "cuda") -> RetryRing:
+    dev = resolve_device(device)
+
+    def neg():
+        return torch.full((num_channels, window), -1, dtype=I32, device=dev)
+
+    def z1():
+        return torch.zeros((num_channels,), dtype=I32, device=dev)
+
+    return RetryRing(neg(), neg(), torch.zeros((num_channels, window),
+                                               dtype=I32, device=dev),
+                     z1(), neg(), z1())
+
+
+class RingCounters(NamedTuple):
+    """Per-channel (C,) ring accounting of one ring-aware delivery call."""
+
+    retried_pairs: torch.Tensor   # ring pair entries re-presented (incl stale)
+    stale_pairs: torch.Tensor     # of those, dropped for an epoch mismatch
+    ring_pairs: torch.Tensor      # pairs resident in the OUTPUT ring
+    retried_sids: torch.Tensor    # ring sid entries re-presented
+    ring_sids: torch.Tensor       # sids resident in the OUTPUT ring
+
+
 class FusedDelivery(NamedTuple):
     """Both stages plus the compacted flat spill streams (channel identity
-    preserved) for the engine's SpillQueue."""
+    preserved) for the engine's SpillQueue. Ring-aware calls additionally
+    carry the successor ``ring`` and its ``counters``; the spill streams
+    then hold only what overflowed PAST the ring."""
 
     pack: PackedDelivery
     fan: FanoutDelivery
     pair_spill: plans.PairStream   # overflowed (row, channel, target) pairs
     sid_spill: plans.ValueStream   # overflowed (sid, channel) end subscribers
+    ring: Optional[RetryRing] = None
+    counters: Optional[RingCounters] = None
+
+
+# ---------------------------------------------------------------------------
+# single-channel stages (the drain path's re-delivery)
+# ---------------------------------------------------------------------------
+
+
+def pack_payloads(result: ChannelResult, group_sids: torch.Tensor,
+                  payload_words: int, max_pairs: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Convert stage for ONE channel: compact the valid pairs, in ravel
+    order, into a (max_pairs, HEADER + sid_cap + payload_words) wire
+    buffer, one row per result pair. A 2-D ``group_sids`` is a group/flat
+    table; any other selects the identity fanout. Returns (buffer,
+    delivered, overflow): pairs beyond ``max_pairs`` are dropped and
+    counted."""
+    sid_cap = group_sids.shape[1] if group_sids.dim() == 2 else 1
+    rows = result.pair_rows.reshape(-1)
+    tgts = result.pair_targets.reshape(-1)
+    valid = result.pair_valid.reshape(-1)
+    pos = torch.cumsum(valid, dim=0, dtype=I32) - 1
+    dest = torch.where(valid & (pos < max_pairs), pos, max_pairs)
+    width = HEADER_WORDS + sid_cap + payload_words
+    out = torch.zeros((max_pairs + 1, width), dtype=I32, device=rows.device)
+    tgt_safe = torch.clamp(tgts, min=0)
+    sids = (_take(group_sids, tgt_safe) if group_sids.dim() == 2
+            else tgt_safe[:, None])
+    members = (sids >= 0).sum(dim=-1, dtype=I32)
+    header = torch.stack([rows, tgts, members,
+                          torch.full_like(rows, payload_words)], dim=-1)
+    payload = rows[:, None].expand(rows.shape[0], payload_words)
+    line = torch.cat([header.to(I32), sids.to(I32), payload.to(I32)], dim=-1)
+    # undelivered lines all land on the discarded spare row max_pairs
+    out[dest.long()] = torch.where(valid[:, None], line, 0)
+    produced = valid.sum(dtype=I32)
+    delivered = torch.clamp(produced, max=max_pairs)
+    return out[:max_pairs], delivered, produced - delivered
+
+
+def fanout_sids(result: ChannelResult, group_sids: torch.Tensor,
+                max_notify: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Send stage for ONE channel: the flat in-order list of end
+    subscribers to notify, up to ``max_notify``. Returns (buffer,
+    delivered, overflow)."""
+    tgts = result.pair_targets.reshape(-1)
+    valid = result.pair_valid.reshape(-1)
+    tgt_safe = torch.clamp(tgts, min=0)
+    sids = (_take(group_sids, tgt_safe) if group_sids.dim() == 2
+            else tgt_safe[:, None])
+    member_valid = (sids >= 0) & valid[:, None]
+    flat = torch.where(member_valid, sids, -1).reshape(-1).to(I32)
+    mask = flat >= 0
+    pos = torch.cumsum(mask, dim=0, dtype=I32) - 1
+    dest = torch.where(mask & (pos < max_notify), pos, max_notify)
+    out = torch.full((max_notify + 1,), -1, dtype=I32, device=flat.device)
+    out.scatter_(0, dest.long(), flat)
+    produced = mask.sum(dtype=I32)
+    delivered = torch.clamp(produced, max=max_notify)
+    return out[:max_notify], delivered, produced - delivered
+
+
+def payload_notifications(payload: np.ndarray, delivered: int,
+                          payload_words: int) -> np.ndarray:
+    """Expand a delivered wire buffer (host numpy) into its (row_id, sID)
+    notification pairs: one per live member sID of each delivered line
+    (the -1 padding is skipped). The partition-independent view of the
+    convert stage."""
+    buf = np.asarray(payload)[:int(delivered)]
+    if buf.size == 0:
+        return np.zeros((0, 2), np.int64)
+    sid_cap = buf.shape[1] - HEADER_WORDS - payload_words
+    sids = buf[:, HEADER_WORDS:HEADER_WORDS + sid_cap].astype(np.int64)
+    rows = np.broadcast_to(buf[:, :1].astype(np.int64), sids.shape)
+    live = sids >= 0
+    return np.stack([rows[live], sids[live]], axis=1)
 
 
 def _take(table: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
@@ -348,14 +483,28 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
                 caps_notify: Optional[torch.Tensor] = None,
                 target_brokers: Optional[torch.Tensor] = None,
                 num_brokers: int = 0,
-                counts: Optional[torch.Tensor] = None) -> FusedDelivery:
+                counts: Optional[torch.Tensor] = None,
+                ring: Optional[RetryRing] = None,
+                epochs: Optional[torch.Tensor] = None) -> FusedDelivery:
     """The whole fused convert+send, plus spill capture: everything that
     missed a delivery buffer lands — with its channel identity — in a flat
     channel-major spill stream holding up to ``spill_cap`` entries PER
     CHANNEL per lane (the first ``spill_cap`` overflow entries of each
     channel are captured; the rest are truncated for the caller to count as
     drops). Spill slots gather their entry straight from the per-channel
-    overflow windows, so spill work is O(C * spill_cap)."""
+    overflow windows, so spill work is O(C * spill_cap).
+
+    With ``ring`` (+ ``epochs``, the (C,) current subscription epoch per
+    channel) the call is RING-AWARE: resident ring entries whose epoch still
+    matches are delivered FIRST (stale ones are dropped and counted), fresh
+    result pairs follow, and the live overflow tail re-enters the output
+    ring up to its window; only what overflows PAST the ring reaches the
+    spill streams."""
+    if ring is not None:
+        return _deliver_with_ring(result, group_sids, payload_words,
+                                  max_pairs, max_notify, spill_cap, ring,
+                                  epochs, caps_pairs, caps_notify,
+                                  target_brokers, num_brokers, counts)
     layout = _pair_layout(result)
     valid2, rows2, tgt2, cumv = layout
     P = valid2.shape[1]
@@ -393,6 +542,128 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
     sid_spill = plans.ValueStream(vals, torch.where(valid_s, ch_s, -1).to(I32),
                                   valid_s, total_s)
     return FusedDelivery(pack, fan, pair_spill, sid_spill)
+
+
+def _deliver_with_ring(result: ChannelResult, group_sids: torch.Tensor,
+                       payload_words: int, max_pairs: int, max_notify: int,
+                       spill_cap: int, ring: RetryRing, epochs,
+                       caps_pairs, caps_notify, target_brokers,
+                       num_brokers: int, counts) -> FusedDelivery:
+    """Ring-aware fused delivery. Per channel, the delivery order is: live
+    (epoch-matching) ring entries in residence order, then the fresh valid
+    pairs in ravel order. The live overflow tail -- ranks past the cap --
+    re-enters the output ring (first W entries), then the spill stream
+    (next spill_cap), then truncates to counted drops. Everything is
+    gather-formulated against the ring's live prefix sums and the fresh
+    prefix sums; the successor ring is built from new tensors."""
+    layout = _pair_layout(result)
+    valid2, rows2, tgt2, cumv = layout
+    C, P = valid2.shape
+    W = ring.window
+    dev = valid2.device
+    epochs = torch.as_tensor(epochs, dtype=I32, device=dev)
+    nfresh = cumv[:, -1]
+    cap_p = _caps(caps_pairs, max_pairs, valid2)
+    ch = _ch(C, valid2)
+    identity = group_sids.shape[-1] == 0
+
+    # ---- pairs lane -----------------------------------------------------
+    iw = torch.arange(W, dtype=I32, device=dev)[None, :]
+    in_ring = iw < ring.pair_count[:, None]
+    live_r = in_ring & (ring.pair_epochs == epochs[:, None])
+    cumr = torch.cumsum(live_r, dim=1, dtype=I32)              # (C, W)
+    nring = cumr[:, -1]
+    stale = ring.pair_count - nring
+    produced = ring.pair_count + nfresh
+    delivered = torch.minimum(nring + nfresh, cap_p)
+
+    def comb_pairs(q, ok):
+        """(rows, tgts) for combined-order ranks ``q`` (C, Q): ring entries
+        first, fresh pairs after."""
+        from_ring = q < nring[:, None]
+        pr = torch.clamp(_source_pair(cumr, q), max=W - 1)
+        qf = torch.clamp(q - nring[:, None], min=0)
+        pf = torch.clamp(_source_pair(cumv, qf), max=P - 1)
+        rows = torch.where(from_ring, _gather(ring.pair_rows, pr),
+                           _gather(rows2, pf))
+        tgts = torch.where(from_ring, _gather(ring.pair_targets, pr),
+                           _gather(tgt2, pf))
+        return (torch.where(ok, rows, -1).to(I32),
+                torch.where(ok, tgts, -1).to(I32))
+
+    q = _ranks(C, max_pairs, valid2)
+    ok = q < delivered[:, None]
+    rows_q, tgts_q = comb_pairs(q, ok)
+    out, per_broker = _pack_lines(
+        torch.where(ok, rows_q, 0), torch.where(ok, tgts_q, 0), ok, ch,
+        group_sids, counts, payload_words, target_brokers, num_brokers)
+    pack = PackedDelivery(out, delivered, produced, torch.zeros_like(valid2),
+                          per_broker)
+
+    # live overflow tail -> output ring window, then spill stream
+    ov_live = nring + nfresh - delivered                       # (C,)
+    i_new = _ranks(C, W, valid2)
+    ok_new = i_new < torch.clamp(ov_live, max=W)[:, None]
+    nrows, ntgts = comb_pairs(delivered[:, None] + i_new, ok_new)
+    ring_p_count = torch.clamp(ov_live, max=W)
+    r = torch.arange(C * spill_cap, dtype=I32, device=dev)
+    ch_r = torch.div(r, spill_cap, rounding_mode="floor")
+    i_r = r % spill_cap
+    chl = ch_r.long()
+    valid_r = (W + i_r) < ov_live[chl]
+    # spill ranks start at delivered + W >= nring: always FRESH-sourced
+    k_r = delivered[chl] + W + i_r                  # combined-order rank
+    pf_r = _row_search(cumv, P + 1, ch_r, k_r - nring[chl]).long()
+    total_p = torch.clamp(ov_live - W, min=0).sum(dtype=I32)
+    pair_spill = plans.PairStream(
+        torch.where(valid_r, rows2[chl, pf_r], -1).to(I32),
+        torch.where(valid_r, ch_r, -1).to(I32),
+        torch.where(valid_r, tgt2[chl, pf_r], -1).to(I32), valid_r, total_p)
+
+    # ---- sids lane ------------------------------------------------------
+    cap_n = _caps(caps_notify, max_notify, valid2)
+    fan0, members, cumm = _fanout_parts(layout, cap_n, group_sids,
+                                        max_notify, counts)
+    rsc = ring.sid_count
+    produced_s = rsc + fan0.produced
+    delivered_s = torch.minimum(produced_s, cap_n)
+
+    def comb_sids(k, ok):
+        """sIDs for combined-order ranks ``k`` (C, Q): resident ring sids
+        (a compacted prefix: direct index) first, fresh members after."""
+        from_ring = k < rsc[:, None]
+        r_val = _gather(ring.sid_values, torch.clamp(k, max=W - 1))
+        kf = torch.clamp(k - rsc[:, None], min=0)
+        f_val = _member_lookup(group_sids, tgt2, members, cumm, kf, ok)
+        return torch.where(ok, torch.where(from_ring, r_val, f_val),
+                           -1).to(I32)
+
+    k = _ranks(C, max_notify, valid2)
+    notify = comb_sids(k, k < delivered_s[:, None])
+    fan = FanoutDelivery(notify, delivered_s, produced_s)
+    ov_s = produced_s - delivered_s
+    ok_snew = i_new < torch.clamp(ov_s, max=W)[:, None]
+    nsids = comb_sids(delivered_s[:, None] + i_new, ok_snew)
+    ring_s_count = torch.clamp(ov_s, max=W)
+    valid_s = (W + i_r) < ov_s[chl]
+    # same invariant as the pairs lane: spill slots are fresh member lookups
+    kf_s = delivered_s[chl] + W + i_r - rsc[chl]
+    sid_cap = 1 if identity else group_sids.shape[-1]
+    p_s = _row_search(cumm, P * sid_cap + 1, ch_r, kf_s).long()
+    j_s = kf_s - (cumm[chl, p_s] - members[chl, p_s])
+    tgt_s = torch.clamp(tgt2[chl, p_s], min=0)
+    vals = torch.where(valid_s, _member_value(group_sids, ch_r, tgt_s, j_s),
+                       -1).to(I32)
+    total_s = torch.clamp(ov_s - W, min=0).sum(dtype=I32)
+    sid_spill = plans.ValueStream(vals, torch.where(valid_s, ch_r, -1).to(I32),
+                                  valid_s, total_s)
+
+    new_ring = RetryRing(nrows, ntgts, epochs[:, None].expand(C, W).clone(),
+                         ring_p_count, nsids, ring_s_count)
+    counters = RingCounters(ring.pair_count, stale, ring_p_count, rsc,
+                            ring_s_count)
+    return FusedDelivery(pack, fan, pair_spill, sid_spill, new_ring,
+                         counters)
 
 
 def _row_search(cum2: torch.Tensor, offset: int, ch: torch.Tensor,

@@ -2,28 +2,48 @@
 
 Responsibilities (paper Fig. 1): data feed ingestion -> ActiveDataset append +
 conditionsList evaluation + BAD-index maintenance; channel execution under a
-chosen ``ExecutionFlags`` plan; broker accounting; subscription control plane
-(Algorithm 1 grouping + UserParameters upkeep).
+chosen ``ExecutionFlags`` / ``ChannelPlan``; broker accounting; subscription
+control plane (Algorithm 1 grouping + UserParameters upkeep).
 
-This is the main-path slice of the reference engine: one BAD tick through
-``execute_channel`` on the padded backends, with broker delivery
-(``deliver=True``) through the same fused ``deliver_all`` the multi-channel
-path uses, run at C == 1. Pairs and sIDs that miss a delivery buffer land in
-the bounded host-side ``SpillQueue`` with their channel identity; what does
-not fit there is counted as dropped (delivered + spilled + dropped ==
-produced, per stage).
+Two execution surfaces, as in the reference engine:
 
-``use_pallas=True`` (backend ``"pallas"``) routes ingestion-time predicate
-evaluation through the ``predicate_filter`` CUDA kernel and the spatial join
-through the ``spatial_match`` CUDA kernel; ``"oracle"`` runs the plain
+- ``execute_channel`` runs one channel on any backend. On the compact
+  backends it runs the C == 1 compacted stream, with the stream capacity
+  grown to the live total's power of two when it would overflow.
+- ``execute_all`` / ``execute`` run EVERY channel in one fused call per
+  plan-group: channels sharing a ``ChannelPlan`` (``set_plan`` or the engine
+  default) share stacked candidate discovery, the stacked param and spatial
+  joins (or the compacted stream join) and ``deliver_all``. With
+  ``deliver=True``, pairs and sIDs that miss a delivery buffer land first in
+  the plan-group's device-resident ``RetryRing`` and are re-delivered inside
+  the next fused call; only overflow past the ring cascades, with its
+  channel identity, into the bounded host-side ``SpillQueue``, which
+  ``drain_spilled()`` re-delivers exactly once on later ticks. Ring pairs
+  whose channel churned go epoch-stale and drop (counted). Per stage,
+  delivered + spilled + dropped == produced == fresh + retried.
+
+The host reads a plan-group's outputs with ONE device->host copy per join
+group (``_host_arrays``); the remaining sync points are the ``bad_index``
+shape bucket (one read per plan-group) and the compact backends' live total
+(one read per compact plan-group). The reports' ``result`` tensors stay on
+the engine's device.
+
+``use_pallas=True`` (the ``"pallas"`` family) routes predicate evaluation
+through the ``predicate_filter`` CUDA kernel (ingest, and the fused
+discovery's stacked rows form), spatial joins through ``spatial_match``
+(stacked in the fused join) and the compacted param join's pair expansion
+through ``join_compact`` (``"compact_pallas"``); ``"oracle"`` runs the plain
 PyTorch versions. On a CPU engine the kernels' wrappers run their plain
 versions (see ``repro_torch/kernels``).
 
+The stacked caches are rebuilt from the host on every epoch change, in the
+reference's layouts (slot / flat_slot / compacted); the reference patches
+them in place instead, so only ``maintenance.rebuilds`` differs.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item porting it: fused multi-channel execution (``execute_all``,
-``execute``), the dispatch/sync split (``dispatch``, ``dispatch_all``),
-``drain_spilled``, the compact backends, spatial cohorts and the enrichment
-stage.
+item porting it: spatial cohorts (``subscribe_users``, item 11), the
+dispatch/sync split (``dispatch``, ``dispatch_all`` and the resolved spill
+lane, item 13) and the enrichment stage (item 14).
 """
 from __future__ import annotations
 
@@ -40,7 +60,9 @@ from repro_torch.core import plans
 from repro_torch.core import records as R
 from repro_torch.core import subscriptions as subs
 from repro_torch.core.broker import (BrokerRegistry, DeliveryStats,
-                                     FusedDelivery, deliver_all)
+                                     FusedDelivery, RetryRing, RingCounters,
+                                     deliver_all, empty_ring, fanout_sids,
+                                     pack_payloads)
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.predicates import (EQ, CompiledConditions,
                                          compile_conditions,
@@ -63,8 +85,8 @@ class MaintenanceStats:
     In the reference, ``traces`` counts jit traces of engine-owned device
     functions. Eager PyTorch has no traces, so in this port it stays 0;
     what it counts here is left to the churn slice (ROADMAP Queue 1, item
-    11). ``rebuilds`` and ``patches`` count stacked-cache rebuilds and delta
-    patches, which only the fused path (not ported yet) performs."""
+    11). ``rebuilds`` counts the fused path's stacked-cache rebuilds;
+    ``patches`` stays 0 until in-place patching is ported (item 11)."""
 
     traces: int = 0
     rebuilds: int = 0
@@ -85,14 +107,16 @@ class ChannelState:
     index: int                      # row in the stacked conditionsList / BADIndexState
     aggregator: subs.Aggregator
     user_params: UserParameters
+    # the channel's assigned physical plan; None runs the engine default.
+    # ``execute_all(flags=None)`` partitions channels into plan-groups by it
     plan: Optional[plans.ChannelPlan] = None
     last_exec_ts: int = 0
     last_exec_size: int = 0
     executions: int = 0
     # ``epoch`` is a total order over this channel's subscription state:
     # bumped on EVERY control-plane change; it keys spill staleness.
-    # ``delta_log`` holds the (epoch, GroupDelta) records the fused path's
-    # delta-patched caches will consume.
+    # ``delta_log`` holds the (epoch, GroupDelta) records that in-place
+    # patching of the stacked caches will consume (item 11).
     epoch: int = 0
     delta_log: Deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=64))
@@ -103,6 +127,9 @@ class ChannelState:
     _groups: Optional[subs.SubscriptionGroups] = None
     _flat: Optional[subs.SubscriptionTable] = None
     _host_targets: Dict[bool, Tuple] = dataclasses.field(default_factory=dict)
+    # device sID tables by pair-target layout, for drains and
+    # ``fused_sids_table`` (uploaded once per epoch)
+    _sid_tables: Dict = dataclasses.field(default_factory=dict)
 
     def note_change(self) -> None:
         """Advance the epoch and log the aggregator's accumulated delta."""
@@ -121,6 +148,43 @@ class ChannelState:
         self._targets_flat = self._targets_grouped = None
         self._groups = self._flat = None
         self._host_targets = {}
+        self._sid_tables = {}
+
+
+@dataclasses.dataclass
+class _GroupCache:
+    """Epoch-tracked stacked device targets of one param join group.
+
+    Capacity-padded (tmax slots / dmax domain / mmax fan-out / cap members)
+    to shared power-of-two buckets; -1 / 0 padding never forms a valid pair.
+    ``epochs`` records the per-channel subscription epoch the tensors
+    reflect: any move rebuilds the entry from the host."""
+
+    names: Tuple[str, ...]
+    aggregated: bool
+    epochs: List[int]
+    tmax: int
+    dmax: int
+    mmax: int
+    cap: int
+    targets: plans.TargetArrays
+    up_masks: torch.Tensor          # (C, dmax) bool
+    domains: torch.Tensor           # (C,) int32
+    sids: torch.Tensor              # (C, tmax, cap) int32
+
+
+@dataclasses.dataclass
+class _SpatialCache:
+    """Stacked per-channel user sets of one spatial join group: every
+    channel serves the global user table (cohorts are not ported), padded
+    to a power of two at the far sentinel; rebuilt when
+    ``set_user_locations`` moves the user version."""
+
+    names: Tuple[str, ...]
+    user_version: int
+    ub: int
+    locs: torch.Tensor              # (C, ub, 2) float32, -FAR holes
+    brokers: torch.Tensor           # (C, ub) int32
 
 
 class SpillQueue:
@@ -320,11 +384,13 @@ class DrainReport:
     """One channel's ``drain_spilled`` round: ``stats`` accounts the retry
     (delivered = re-delivered this round, spilled = still queued, dropped =
     stale/unroutable); ``payload`` / ``notify`` are the re-packed wire buffer
-    and re-sent sID buffer (delivered prefix meaningful)."""
+    and re-sent sID buffer (delivered prefix meaningful), left on the
+    engine's device: a slot-layout buffer of a 1M-subscription channel is
+    hundreds of MB."""
 
     stats: DeliveryStats
-    payload: Optional[np.ndarray] = None
-    notify: Optional[np.ndarray] = None
+    payload: Optional[torch.Tensor] = None
+    notify: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -337,8 +403,33 @@ class ExecutionReport:
     num_notified: int
     scanned: int
     broker_bytes: np.ndarray
+    # the full plan (flags + backend) of a fused execution; None on the
+    # per-channel ``execute_channel`` path
+    plan: Optional[plans.ChannelPlan] = None
     # broker overflow accounting; None unless executed with ``deliver=True``
     overflow: Optional[DeliveryStats] = None
+    # delivered wire buffers (delivered prefix meaningful), only on
+    # ``execute_all(deliver=True)`` with ``debug_delivery_buffers`` set
+    payload: Optional[np.ndarray] = None
+    notify: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class _PendingGroup:
+    """One executed plan-group awaiting its host half: the group's outputs
+    (device tensors), layouts and epoch snapshots for SpillQueue tagging."""
+
+    plan: plans.ChannelPlan
+    param_chs: List
+    spatial_chs: List
+    res: tuple                       # (res_p, res_s, del_p, del_s)
+    p_layout: object
+    s_layout: object
+    deliver: bool
+    wall: float                      # timed wall; 0.0 when untimed
+    t0: float
+    p_epochs: List[int]
+    s_epochs: List[int]
 
 
 class BADEngine:
@@ -382,8 +473,24 @@ class BADEngine:
         # host-side bounded retry queue
         self.max_spill = max_spill
         self.spill = SpillQueue(spill_capacity)
-        # kept for the fused slice, whose retry rings it sizes
+        # device-resident retry rings, one per fused join group (keyed by
+        # (kind, plan, membership)); 0 disables them (overflow goes straight
+        # to the SpillQueue)
         self.ring_capacity = ring_capacity
+        self._rings: Dict = {}
+        self.ring_flush_drops = 0
+        # surface delivered wire buffers on ExecutionReport (testing aid)
+        self.debug_delivery_buffers = False
+        # adaptive compacted-stream capacities (compact backends): pow2
+        # buckets per (kind, plan, membership) key, grown to the live
+        # total's bucket when a run would overflow and halved after
+        # ``_STREAM_PATIENCE`` runs at <= half occupancy
+        self._stream_buckets: Dict = {}
+        self._stream_idle: Dict = {}
+        # stacked device state of the fused path, per join group
+        self._stacked_cache: Dict = {}
+        # keys the stacked user sets; bumped by set_user_locations
+        self._user_version = 0
         self.user_locations = torch.zeros((1, 2), dtype=torch.float32,
                                           device=self.device)
         self.user_brokers = torch.zeros((1,), dtype=I32, device=self.device)
@@ -422,6 +529,33 @@ class BADEngine:
         for i, st in enumerate(survivors):
             st.index = i
         self._rebuild_conditions(old_rows)
+
+    def default_plan(self) -> plans.ChannelPlan:
+        """The plan channels run under until one is assigned: the default
+        ExecutionFlags with the engine's kernel backend."""
+        return plans.ChannelPlan(
+            backend="pallas" if self.use_pallas else "oracle")
+
+    def channel_plan(self, name: str) -> plans.ChannelPlan:
+        return self.channels[name].plan or self.default_plan()
+
+    def set_plan(self, name: str, plan: plans.ChannelPlan) -> bool:
+        """Assign a channel's physical plan; returns True when it changed.
+        The NEXT ``execute_all(flags=None)`` partitions plan-groups from the
+        new value; the old plan-group's retry ring migrates into the host
+        SpillQueue (tagged with the layout it was produced under) and
+        re-delivers through ``drain_spilled``."""
+        if not isinstance(plan, plans.ChannelPlan):
+            raise TypeError(f"expected ChannelPlan, got {type(plan)!r}")
+        st = self.channels[name]
+        if st.plan == plan:
+            return False
+        st.plan = plan
+        return True
+
+    def plan_assignment(self) -> Dict[str, plans.ChannelPlan]:
+        """Every channel's effective plan (assigned or engine default)."""
+        return {name: self.channel_plan(name) for name in self.channels}
 
     def subscribe(self, channel: str, param: int, broker: str = "BrokerA",
                   sid: Optional[int] = None) -> int:
@@ -498,6 +632,7 @@ class BADEngine:
             brokers = np.zeros((locations.shape[0],), dtype=np.int32)
         self.user_brokers = torch.as_tensor(np.asarray(brokers, np.int32),
                                             device=self.device)
+        self._user_version += 1      # the stacked user sets rebuild
 
     # ------------------------------------------------------------------
     # data plane: ingestion
@@ -528,6 +663,15 @@ class BADEngine:
             new.watermarks[:n] = old.watermarks[src]
             new.overflowed[:n] = old.overflowed[src]
         self.index_state = new
+        # stream buckets re-converge; stacked caches track per-channel
+        # epochs, and a same-named channel re-created at epoch 0 would
+        # collide, so they go too
+        self._stream_buckets.clear()
+        self._stream_idle.clear()
+        self._stacked_cache.clear()
+        # retry rings are shaped by the channel set: hand their entries to
+        # the host queue (dropped channels drop at drain time, counted)
+        self.flush_rings()
 
     def ingest(self, batch: R.RecordBatch) -> np.ndarray:
         """Data feed entry point: append + BAD-index maintenance (Algorithm 2).
@@ -613,32 +757,33 @@ class BADEngine:
         flat = self._flat_table(st)
         return torch.as_tensor(flat.sids, device=self.device)[:, None]
 
-    def _run_plan(self, st: ChannelState, flags: plans.ExecutionFlags,
-                  max_cand: Optional[int], backend: str,
-                  targets: plans.TargetArrays, up_mask: torch.Tensor
-                  ) -> plans.ChannelResult:
-        """One channel's padded plan: candidate discovery under the scan
-        mode, then the param or spatial join."""
+    def _discover_one(self, st: ChannelState, flags: plans.ExecutionFlags,
+                      max_cand: int) -> plans.CandidateSet:
+        """One channel's candidate discovery under the scan mode."""
         spec = st.spec
         conds_one = compile_conditions([list(spec.fixed_preds)])
-        best_pred = int(np.argmax([_pred_rank(p) for p in spec.fixed_preds])) \
-            if spec.fixed_preds else 0
-        max_cand = max_cand or self.max_candidates
-        num_brokers = self.brokers.num_brokers
         ds = self.dataset
         if flags.scan_mode == "full":
-            cand = plans.candidates_full_scan(ds, conds_one, st.last_exec_ts,
+            return plans.candidates_full_scan(ds, conds_one, st.last_exec_ts,
                                               max_cand)
-        elif flags.scan_mode == "window":
-            cand = plans.candidates_window(ds, conds_one, st.last_exec_size,
+        if flags.scan_mode == "window":
+            return plans.candidates_window(ds, conds_one, st.last_exec_size,
                                            self.max_window)
-        elif flags.scan_mode == "trad_index":
-            cand = plans.candidates_trad_index(ds, conds_one, best_pred,
+        if flags.scan_mode == "trad_index":
+            return plans.candidates_trad_index(ds, conds_one, _best_pred(st),
                                                st.last_exec_size,
                                                self.max_window, max_cand)
-        else:
-            cand = plans.candidates_bad_index(ds, self.index_state, st.index,
-                                              max_cand)
+        return plans.candidates_bad_index(ds, self.index_state, st.index,
+                                          max_cand)
+
+    def _run_plan(self, st: ChannelState, flags: plans.ExecutionFlags,
+                  cand: plans.CandidateSet, backend: str,
+                  targets: plans.TargetArrays, up_mask: torch.Tensor
+                  ) -> plans.ChannelResult:
+        """One channel's padded join (param or spatial) of ``cand``."""
+        spec = st.spec
+        num_brokers = self.brokers.num_brokers
+        ds = self.dataset
         if spec.join == "spatial":
             spatial_fn = None
             if plans.backend_family(backend) == "pallas":
@@ -652,6 +797,40 @@ class BADEngine:
             ds, cand, targets, spec.param_field, spec.payload_bytes,
             num_brokers, up_mask if flags.param_pushdown else None,
             flags.aggregation)
+
+    def _run_compact_one(self, st: ChannelState, flags: plans.ExecutionFlags,
+                         cand: plans.CandidateSet, backend: str,
+                         targets: plans.TargetArrays, up_mask: torch.Tensor,
+                         stream_cap: int) -> plans.ChannelResult:
+        """One channel on a compact backend: the fused path's stream code
+        run as a C == 1 compacted stream of ``stream_cap`` entries."""
+        spec = st.spec
+        num_brokers = self.brokers.num_brokers
+        ds = self.dataset
+        dev = self.device
+        cand1 = plans.CandidateSet(*(t[None] for t in cand))
+        stream = plans.compact_candidates(cand1, stream_cap)
+        payload = torch.tensor([spec.payload_bytes], dtype=I32, device=dev)
+        if spec.join == "spatial":
+            sj = plans.join_spatial_stream(
+                ds, stream, self.user_locations[None], self.user_brokers[None],
+                torch.tensor([spec.spatial_radius], dtype=torch.float32,
+                             device=dev), payload, num_brokers)
+        else:
+            join_fn = None
+            if backend == "compact_pallas":
+                from repro_torch.kernels.join_compact import ops as jc_ops
+                join_fn = jc_ops.join_pairs
+            scal = torch.tensor([spec.param_field, targets.by_param.shape[0]],
+                                dtype=I32, device=dev)
+            sj = plans.join_param_stream(
+                ds, stream, plans.TargetArrays(*(t[None] for t in targets)),
+                scal[0:1], payload, num_brokers,
+                up_mask[None] if flags.param_pushdown else None,
+                flags.aggregation, scal[1:2], join_fn)
+        width = min(stream_cap, cand.rows.shape[0])
+        res1 = plans.stream_to_stacked(sj, stream, cand1.scanned, width)
+        return plans.ChannelResult(*(t[0] for t in res1))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -679,45 +858,70 @@ class BADEngine:
                         self.max_deliver_pairs, self.max_notify,
                         self.max_spill, target_brokers=tb,
                         num_brokers=self.brokers.num_brokers, counts=counts)
-        return self._spill_and_stats([st], aggregated, d)[st.spec.name]
+        return self._spill_and_stats([st], aggregated,
+                                     _host_arrays(_delivery_tensors(d)))[
+                                         st.spec.name]
 
     def _spill_and_stats(self, chs: List[ChannelState], layout,
-                         d: FusedDelivery) -> Dict[str, DeliveryStats]:
-        """Host side of a delivery: push the captured flat spill streams into
-        the SpillQueue per channel (entries past the queue's capacity — or
-        past the device capture buffer — become counted drops) and assemble
+                         h: Dict[str, np.ndarray],
+                         epochs: Optional[List[int]] = None
+                         ) -> Dict[str, DeliveryStats]:
+        """Host side of a delivery, on its host copy ``h``
+        (``_delivery_tensors``): push the captured flat spill streams into
+        the SpillQueue per channel (entries past the queue's capacity, or
+        past the device capture buffer, become counted drops) and assemble
         each channel's conserving DeliveryStats. ``layout`` tags the pair
         lane with the target index space the producing join used (False =
-        flat rows, True = compacted group rows)."""
-        def host(t):
-            return t.cpu().numpy()
-
-        pack_d, pack_p = host(d.pack.delivered), host(d.pack.produced)
-        fan_d, fan_p = host(d.fan.delivered), host(d.fan.produced)
-        per_broker = host(d.pack.per_broker)
-        pvalid = host(d.pair_spill.valid)
-        prows = host(d.pair_spill.rows)[pvalid]
-        pchan = host(d.pair_spill.channels)[pvalid]
-        ptgts = host(d.pair_spill.targets)[pvalid]
-        svalid = host(d.sid_spill.valid)
-        svals = host(d.sid_spill.values)[svalid]
-        schan = host(d.sid_spill.channels)[svalid]
+        flat rows, True = compacted group rows, "slot" / "flat_slot" =
+        aggregator slot rows); ``epochs`` stamps pair entries with the
+        execution-time epochs instead of the live ones."""
+        pack_d, pack_p = h["pack_delivered"], h["pack_produced"]
+        fan_d, fan_p = h["fan_delivered"], h["fan_produced"]
+        per_broker = h["per_broker"]
+        pvalid = h["pair_valid"]
+        prows = h["pair_rows"][pvalid]
+        pchan = h["pair_channels"][pvalid]
+        ptgts = h["pair_targets"][pvalid]
+        svalid = h["sid_valid"]
+        svals = h["sid_values"][svalid]
+        schan = h["sid_channels"][svalid]
+        ring = "retried_pairs" in h
         out: Dict[str, DeliveryStats] = {}
         for i, st in enumerate(chs):
             name = st.spec.name
             sel = pchan == i
+            epoch = st.epoch if epochs is None else epochs[i]
             spilled_p = self.spill.push_pairs(name, layout, prows[sel],
-                                              ptgts[sel], st.epoch)
-            sel = schan == i
-            spilled_s = self.spill.push_sids(name, svals[sel])
+                                              ptgts[sel], epoch)
+            spilled_s = self.spill.push_sids(name, svals[schan == i])
             ov_p = int(pack_p[i] - pack_d[i])
             ov_s = int(fan_p[i] - fan_d[i])
+            brokers = tuple(int(x) for x in per_broker[i])
+            if not ring:
+                out[name] = DeliveryStats(
+                    delivered_pairs=int(pack_d[i]), spilled_pairs=spilled_p,
+                    dropped_pairs=ov_p - spilled_p,
+                    delivered_sids=int(fan_d[i]), spilled_sids=spilled_s,
+                    dropped_sids=ov_s - spilled_s,
+                    delivered_pairs_broker=brokers)
+                continue
+            # ring-resident entries count as spilled; overflow past the ring
+            # that also missed the queue (or went epoch-stale in the ring)
+            # counts as dropped
+            stale_p = int(h["stale_pairs"][i])
+            ring_p, ring_s = int(h["ring_pairs"][i]), int(h["ring_sids"][i])
+            host_want_p = ov_p - stale_p - ring_p
+            host_want_s = ov_s - ring_s
             out[name] = DeliveryStats(
-                delivered_pairs=int(pack_d[i]), spilled_pairs=spilled_p,
-                dropped_pairs=ov_p - spilled_p,
-                delivered_sids=int(fan_d[i]), spilled_sids=spilled_s,
-                dropped_sids=ov_s - spilled_s,
-                delivered_pairs_broker=tuple(int(x) for x in per_broker[i]))
+                delivered_pairs=int(pack_d[i]),
+                spilled_pairs=ring_p + spilled_p,
+                dropped_pairs=stale_p + host_want_p - spilled_p,
+                delivered_sids=int(fan_d[i]),
+                spilled_sids=ring_s + spilled_s,
+                dropped_sids=host_want_s - spilled_s,
+                delivered_pairs_broker=brokers,
+                retried_pairs=int(h["retried_pairs"][i]),
+                retried_sids=int(h["retried_sids"][i]))
         return out
 
     def execute_channel(self, channel: str,
@@ -726,20 +930,20 @@ class BADEngine:
                         timed: bool = True,
                         deliver: bool = False,
                         backend: Optional[str] = None) -> ExecutionReport:
-        """Execute one channel under ``flags`` on a padded backend
-        ("oracle" or "pallas"). ``timed`` is accepted for the reference's
-        signature: eager PyTorch has no trace to warm, so ``wall_time_s``
-        always times the execution itself, ending in a device
-        synchronize on a CUDA engine."""
+        """Execute one channel under ``flags`` on any backend (default: the
+        engine's). ``timed`` is accepted for the reference's signature:
+        eager PyTorch has no trace to warm, so ``wall_time_s`` always times
+        the execution itself, ending in a device synchronize on a CUDA
+        engine. The compact backends run the C == 1 compacted stream, whose
+        capacity grows to the live total's power of two when the remembered
+        bucket would overflow (one host read of the total)."""
         st = self.channels[channel]
         backend = backend or ("pallas" if self.use_pallas else "oracle")
         if backend not in plans.BACKENDS:
             raise ValueError(f"backend must be one of {plans.BACKENDS}")
-        if plans.is_compact(backend):
-            raise _not_ported(f"the {backend!r} backend", "item 10")
         # The BAD index knows its exact candidate count before execution (the
         # watermark delta), so downstream buffers are shape-bucketed to it.
-        max_cand = None
+        max_cand = self.max_candidates
         if flags.scan_mode == "bad_index":
             pending = int(self.index_state.counts[st.index]
                           - self.index_state.watermarks[st.index])
@@ -748,8 +952,22 @@ class BADEngine:
         up_mask = st.user_params.mask(self.device)
         self._sync()
         t0 = time.perf_counter()
-        result = self._run_plan(st, flags, max_cand, backend, targets,
-                                up_mask)
+        cand = self._discover_one(st, flags, max_cand)
+        if plans.is_compact(backend):
+            key = ("chan", channel, flags, st.spec.join == "spatial")
+            width = (self.max_window if flags.scan_mode == "window"
+                     else max_cand)
+            stream_cap = min(self._stream_buckets.get(key, 1 << _STREAM_FLOOR),
+                             _pow2_bucket(width, _STREAM_FLOOR))
+            total = int(cand.valid.sum())     # the grow protocol's host read
+            if total > stream_cap:
+                stream_cap = _pow2_bucket(total, _STREAM_FLOOR)
+            self._stream_buckets[key] = stream_cap
+            result = self._run_compact_one(st, flags, cand, backend, targets,
+                                           up_mask, stream_cap)
+        else:
+            result = self._run_plan(st, flags, cand, backend, targets,
+                                    up_mask)
         self._sync()
         wall = time.perf_counter() - t0
         if advance:
@@ -758,24 +976,751 @@ class BADEngine:
             st.last_exec_size = self.size_host
             st.executions += 1
         overflow = self._deliver(st, result, flags.aggregation) if deliver else None
+        h = _host_arrays({"num_results": result.num_results,
+                          "num_notified": result.num_notified,
+                          "scanned": result.scanned,
+                          "broker_bytes": result.broker_bytes})
         return ExecutionReport(
             channel=channel, flags=flags, result=result, wall_time_s=wall,
-            num_results=int(result.num_results),
-            num_notified=int(result.num_notified),
-            scanned=int(result.scanned),
-            broker_bytes=result.broker_bytes.cpu().numpy(),
+            num_results=int(h["num_results"]),
+            num_notified=int(h["num_notified"]),
+            scanned=int(h["scanned"]), broker_bytes=h["broker_bytes"],
             overflow=overflow)
+
+    # ------------------------------------------------------------------
+    # data plane: fused multi-channel execution
+    # ------------------------------------------------------------------
+
+    def _group_state(self, chs: List[ChannelState],
+                     aggregated: bool) -> _GroupCache:
+        """The fused path's stacked group state for one param join group,
+        keyed by layout and membership, rebuilt from the host whenever any
+        channel's epoch moved (the reference patches it in place; item
+        11)."""
+        names = tuple(st.spec.name for st in chs)
+        key = ("groups", aggregated, names)
+        cache = self._stacked_cache.get(key)
+        if cache is not None and cache.epochs == [st.epoch for st in chs]:
+            return cache
+        cache = self._build_group_state(chs, aggregated)
+        self._stacked_put(key, cache)
+        return cache
+
+    def _stacked_put(self, key, cache, cap: int = 32) -> None:
+        """Insert a stacked cache entry with FIFO eviction: plan switches
+        re-group channels, and superseded groupings must not pin dead
+        device tensors forever."""
+        if key not in self._stacked_cache and len(self._stacked_cache) >= cap:
+            self._stacked_cache.pop(next(iter(self._stacked_cache)))
+        self._stacked_cache[key] = cache
+
+    def _build_group_state(self, chs: List[ChannelState],
+                           aggregated: bool) -> _GroupCache:
+        """Stacked targets in the reference's three layouts: aggregator SLOT
+        rows (aggregated, incremental), FLAT stable slots (flat,
+        incremental; join-map rows positional with -1 holes) and the
+        compacted ``build()`` rows (non-incremental)."""
+        self.maintenance.rebuilds += 1
+        names = tuple(st.spec.name for st in chs)
+        n = len(chs)
+        dmax = max(st.spec.param_domain for st in chs)
+        if aggregated and self.incremental:
+            hosts = [st.aggregator.slot_arrays() for st in chs]
+            tmax = _pow2_bucket(max(h[0].shape[0] for h in hosts), 3)
+            mmax = _pow2_bucket(
+                max(st.aggregator.max_param_fanout() for st in chs), 3)
+            cap = max(st.aggregator.cap for st in chs)
+            by_param = np.full((n, dmax, mmax), -1, np.int32)
+            by_count = np.zeros((n, dmax), np.int32)
+            sids = np.full((n, tmax, cap), -1, np.int32)
+            for i, (st, h) in enumerate(zip(chs, hosts)):
+                for p, row in st.aggregator.param_items():
+                    by_param[i, p, :len(row)] = row
+                    by_count[i, p] = len(row)
+                sids[i, :h[3].shape[0], :h[3].shape[1]] = h[3]
+        elif self.incremental:
+            hosts = [st.aggregator.flat_slot_arrays() for st in chs]
+            tmax = _pow2_bucket(max(h[0].shape[0] for h in hosts), 3)
+            mmax = _pow2_bucket(
+                max(st.aggregator.max_flat_extent() for st in chs), 3)
+            cap = 1
+            by_param = np.full((n, dmax, mmax), -1, np.int32)
+            by_count = np.zeros((n, dmax), np.int32)
+            sids = np.full((n, tmax, cap), -1, np.int32)
+            for i, (st, h) in enumerate(zip(chs, hosts)):
+                for p, row in st.aggregator.flat_param_rows():
+                    by_param[i, p, :len(row)] = row
+                    by_count[i, p] = len(row)       # extent, holes masked
+                sids[i, :h[3].shape[0], 0] = h[3]
+        else:
+            hosts2 = [self._targets_host(st, aggregated) for st in chs]
+            hosts = [(h[0], h[1], h[2]) for h in hosts2]
+            tmax = _pow2_bucket(max(h[0].shape[0] for h in hosts2), 3)
+            mmax = _pow2_bucket(max(h[3].shape[1] for h in hosts2), 3)
+            by_param = np.full((n, dmax, mmax), -1, np.int32)
+            by_count = np.zeros((n, dmax), np.int32)
+            srcs = []
+            for st in chs:
+                if aggregated:
+                    groups = st._groups or st.aggregator.build()
+                    st._groups = groups
+                    srcs.append(np.asarray(groups.group_sids, np.int32))
+                else:
+                    srcs.append(np.asarray(self._flat_table(st).sids,
+                                           np.int32)[:, None])
+            cap = max(h.shape[1] for h in srcs)
+            sids = np.full((n, tmax, cap), -1, np.int32)
+            for i, (h2, h) in enumerate(zip(hosts2, srcs)):
+                d, m = h2[3].shape
+                by_param[i, :d, :m] = h2[3]
+                by_count[i, :d] = h2[4]
+                sids[i, :h.shape[0], :h.shape[1]] = h
+        params = np.zeros((n, tmax), np.int32)
+        brokers = np.zeros((n, tmax), np.int32)
+        counts = np.zeros((n, tmax), np.int32)
+        up_masks = np.zeros((n, dmax), bool)
+        domains = np.zeros((n,), np.int32)
+        for i, (st, (p, b, c, *_)) in enumerate(zip(chs, hosts)):
+            t = p.shape[0]
+            params[i, :t] = p
+            brokers[i, :t] = b
+            counts[i, :t] = c
+            up_masks[i, :st.spec.param_domain] = st.user_params.refcount > 0
+            domains[i] = st.spec.param_domain
+        dev = self.device
+        targets = plans.TargetArrays(*(
+            torch.as_tensor(a, device=dev)
+            for a in (params, brokers, counts, by_param, by_count)))
+        return _GroupCache(names, aggregated, [st.epoch for st in chs],
+                           tmax, dmax, mmax, cap, targets,
+                           torch.as_tensor(up_masks, device=dev),
+                           torch.as_tensor(domains, device=dev),
+                           torch.as_tensor(sids, device=dev))
+
+    def _spatial_state(self, chs: List[ChannelState]) -> _SpatialCache:
+        """Stacked per-channel user sets of one spatial join group, rebuilt
+        when ``set_user_locations`` moved the user version."""
+        names = tuple(st.spec.name for st in chs)
+        cache = self._stacked_cache.get(("spatial", names))
+        if cache is not None and cache.user_version == self._user_version:
+            return cache
+        cache = self._build_spatial_state(chs)
+        self._stacked_put(("spatial", names), cache)
+        return cache
+
+    def _build_spatial_state(self, chs: List[ChannelState]) -> _SpatialCache:
+        from repro_torch.kernels.spatial_match.ops import FAR
+        self.maintenance.rebuilds += 1
+        u = self.user_locations.shape[0]
+        ub = _pow2_bucket(u, 3)
+        n = len(chs)
+        locs = torch.full((n, ub, 2), -FAR, dtype=torch.float32,
+                          device=self.device)
+        brokers = torch.zeros((n, ub), dtype=I32, device=self.device)
+        locs[:, :u] = self.user_locations
+        brokers[:, :u] = self.user_brokers
+        return _SpatialCache(tuple(st.spec.name for st in chs),
+                             self._user_version, ub, locs, brokers)
+
+    def fused_sids_table(self, name: str, aggregated: bool) -> torch.Tensor:
+        """The sID table matching the FUSED path's pair-target space for one
+        channel: slot tables on an incremental engine (group slots when
+        aggregated, flat per-subscription slots otherwise), the compacted
+        build tables on a rebuild engine, and the 0-width identity fanout
+        for spatial channels."""
+        st = self.channels[name]
+        if st.spec.join == "spatial":
+            return torch.zeros((0,), dtype=I32, device=self.device)
+        if self.incremental:
+            return self._sid_table(st, "slot" if aggregated else "flat_slot")
+        return self._sid_table(st, aggregated)
+
+    def _sid_table(self, st: ChannelState, layout) -> torch.Tensor:
+        """One channel's device sID table for a pair-target layout ("slot" /
+        "flat_slot": aggregator slot rows; True / False: compacted build
+        rows), uploaded once per subscription epoch."""
+        tbl = st._sid_tables.get(layout)
+        if tbl is None:
+            if layout == "slot":
+                tbl = torch.as_tensor(st.aggregator.slot_arrays()[3],
+                                      device=self.device)
+            elif layout == "flat_slot":
+                tbl = torch.as_tensor(st.aggregator.flat_slot_arrays()[3],
+                                      device=self.device)[:, None]
+            else:
+                tbl = self.group_sids_array(st.spec.name, layout)
+            st._sid_tables[layout] = tbl
+        return tbl
+
+    def _group_scalars(self, chs: List[ChannelState]) -> Dict[str, torch.Tensor]:
+        """The (C,) per-channel scalars of one join group, uploaded in ONE
+        host->device copy: index rows, trad-index predicate, param field,
+        payload, last execution marks, epochs and (bit-cast) radii."""
+        radii = np.asarray([st.spec.spatial_radius for st in chs], np.float32)
+        cols = {"rows": [st.index for st in chs],
+                "best": [_best_pred(st) for st in chs],
+                "param_field": [st.spec.param_field for st in chs],
+                "payload": [st.spec.payload_bytes for st in chs],
+                "last_ts": [st.last_exec_ts for st in chs],
+                "last_size": [st.last_exec_size for st in chs],
+                "epochs": [st.epoch for st in chs],
+                "radius": radii.view(np.int32)}
+        dev = torch.as_tensor(
+            np.stack([np.asarray(v, np.int32) for v in cols.values()]),
+            device=self.device)
+        out = {k: dev[i] for i, k in enumerate(cols)}
+        out["radius"] = out["radius"].view(torch.float32)
+        return out
+
+    def _conds_rows(self, chs: List[ChannelState]) -> CompiledConditions:
+        rows = [st.index for st in chs]
+        c = self._conds
+        return CompiledConditions(c.field_idx[rows], c.op[rows],
+                                  c.value[rows], c.npreds[rows])
+
+    def _discover_all(self, plan: plans.ChannelPlan, chs: List[ChannelState],
+                      inp: Dict, max_cand: int) -> plans.CandidateSet:
+        """Stacked candidate discovery of one join group under the plan's
+        scan mode; a pallas-family plan evaluates predicates with the
+        ``predicate_filter`` kernel (the rows form for window/trad_index)."""
+        conds = self._conds_rows(chs)
+        match_fn = match_rows_fn = None
+        if plans.backend_family(plan.backend) == "pallas":
+            from repro_torch.kernels.predicate_filter import ops as pf_ops
+            match_fn = lambda f: pf_ops.predicate_filter(f, conds)
+            match_rows_fn = lambda f: pf_ops.predicate_filter_rows(f, conds)
+        ds = self.dataset
+        if plan.scan_mode == "full":
+            return plans.candidates_full_scan_all(ds, conds, inp["last_ts"],
+                                                  max_cand, match_fn)
+        if plan.scan_mode == "window":
+            return plans.candidates_window_all(ds, conds, inp["last_size"],
+                                               self.max_window, match_rows_fn)
+        if plan.scan_mode == "trad_index":
+            return plans.candidates_trad_index_all(
+                ds, conds, inp["best"], inp["last_size"], self.max_window,
+                max_cand, match_rows_fn)
+        return plans.candidates_bad_index_all(self.index_state, inp["rows"],
+                                              max_cand)
+
+    def _run_group(self, plan: plans.ChannelPlan,
+                   param_chs: List[ChannelState],
+                   spatial_chs: List[ChannelState], max_cand: int,
+                   deliver: bool, p_in: Optional[Dict], s_in: Optional[Dict],
+                   p_ring: Optional[RetryRing], s_ring: Optional[RetryRing]):
+        """ONE plan-group's execution: stacked discovery per join group
+        (param / spatial), the stacked joins over the channel axis, and with
+        ``deliver`` the broker convert+send stages (``deliver_all``, ring
+        aware when a ring is given) on the same device, no host round trip
+        in between. The compact backends compress the discovered candidates
+        into a channel-major stream whose capacity ``_stream_caps`` chooses
+        first, so every run is accepted and a ring is presented once.
+        Returns (res_p, res_s, del_p, del_s)."""
+        nb = self.brokers.num_brokers
+        pushdown, aggregated = plan.param_pushdown, plan.aggregation
+        use_pallas = plans.backend_family(plan.backend) == "pallas"
+        compact = plans.is_compact(plan.backend)
+        ds = self.dataset
+        cand_p = (self._discover_all(plan, param_chs, p_in, max_cand)
+                  if param_chs else None)
+        cand_s = (self._discover_all(plan, spatial_chs, s_in, max_cand)
+                  if spatial_chs else None)
+        if compact:
+            p_stream, s_stream = self._stream_caps(plan, param_chs,
+                                                   spatial_chs, cand_p,
+                                                   cand_s, max_cand)
+        pw, mp = self.deliver_payload_words, self.max_deliver_pairs
+        mn, sc = self.max_notify, self.max_spill
+        res_p = res_s = del_p = del_s = None
+        if param_chs:
+            cand = cand_p
+            up = p_in["up_masks"] if pushdown else None
+            if compact:
+                join_fn = None
+                if plan.backend == "compact_pallas":
+                    from repro_torch.kernels.join_compact import ops as jc_ops
+                    join_fn = jc_ops.join_pairs
+                stream = plans.compact_candidates(cand, p_stream)
+                sj = plans.join_param_stream(
+                    ds, stream, p_in["targets"], p_in["param_field"],
+                    p_in["payload"], nb, up, aggregated, p_in["domains"],
+                    join_fn)
+                res_p = plans.stream_to_stacked(
+                    sj, stream, cand.scanned,
+                    min(p_stream, cand.rows.shape[1]))
+                del stream, sj
+            else:
+                res_p = plans.join_param_targets_all(
+                    ds, cand, p_in["targets"], p_in["param_field"],
+                    p_in["payload"], nb, up, aggregated, p_in["domains"])
+            if deliver:
+                del_p = deliver_all(
+                    res_p, p_in["sids"], pw, mp, mn, sc,
+                    target_brokers=p_in["targets"].brokers, num_brokers=nb,
+                    counts=p_in["targets"].counts, ring=p_ring,
+                    epochs=None if p_ring is None else p_in["epochs"])
+        if spatial_chs:
+            cand = cand_s
+            if compact:
+                stream = plans.compact_candidates(cand, s_stream)
+                sj = plans.join_spatial_stream(
+                    ds, stream, s_in["locs"], s_in["brokers"],
+                    s_in["radius"], s_in["payload"], nb)
+                res_s = plans.stream_to_stacked(
+                    sj, stream, cand.scanned,
+                    min(s_stream, cand.rows.shape[1]))
+                del stream, sj
+            else:
+                spatial_fn = None
+                if use_pallas:
+                    from repro_torch.kernels.spatial_match import ops as sm_ops
+                    spatial_fn = sm_ops.spatial_match
+                res_s = plans.join_spatial_all(
+                    ds, cand, s_in["locs"], s_in["brokers"], s_in["radius"],
+                    s_in["payload"], nb, spatial_fn)
+            if deliver:
+                del_s = deliver_all(
+                    res_s, s_in["sids"], pw, mp, mn, sc,
+                    target_brokers=s_in["brokers"], num_brokers=nb,
+                    ring=s_ring,
+                    epochs=None if s_ring is None else s_in["epochs"])
+        return res_p, res_s, del_p, del_s
+
+    def _stream_caps(self, plan: plans.ChannelPlan,
+                     param_chs: List[ChannelState],
+                     spatial_chs: List[ChannelState],
+                     cand_p: Optional[plans.CandidateSet],
+                     cand_s: Optional[plans.CandidateSet],
+                     max_cand: int) -> Tuple[int, int]:
+        """The adaptive stream-capacity protocol of one compact plan-group
+        (see ``_STREAM_FLOOR``), per (kind, plan, membership) key: start
+        from the remembered bucket; when the live total exceeds it, run at
+        the total's power-of-two bucket instead (the reference runs,
+        detects the overflow and re-runs; discovery is pure, so reading the
+        totals first gives the same capacities and never runs a truncated
+        join); halve the remembered bucket after ``_STREAM_PATIENCE``
+        consecutive runs at <= half occupancy. One host read of both
+        totals. Returns the (param, spatial) capacities to run at."""
+        width = self.max_window if plan.scan_mode == "window" else max_cand
+        floor = 1 << _STREAM_FLOOR
+        zero = torch.zeros((), dtype=I32, device=self.device)
+        tots = torch.stack([zero if c is None else c.valid.sum(dtype=I32)
+                            for c in (cand_p, cand_s)]).cpu().tolist()
+        caps = []
+        for kind, chs, tot in (("param", param_chs, tots[0]),
+                               ("spatial", spatial_chs, tots[1])):
+            if not chs:
+                caps.append(0)
+                continue
+            key = (kind, plan, tuple(st.spec.name for st in chs))
+            cap = min(self._stream_buckets.get(key, floor),
+                      _pow2_bucket(len(chs) * width, _STREAM_FLOOR))
+            if tot > cap:
+                cap = _pow2_bucket(tot, _STREAM_FLOOR)
+            caps.append(cap)
+            keep = cap
+            if cap > floor and tot <= cap // 2:
+                idle = self._stream_idle.get(key, 0) + 1
+                if idle >= _STREAM_PATIENCE:
+                    keep, idle = cap // 2, 0
+                self._stream_idle[key] = idle
+            else:
+                self._stream_idle[key] = 0
+            self._stream_buckets[key] = keep
+        return caps[0], caps[1]
+
+    def execute_all(self, flags: Optional[plans.ExecutionFlags] = None,
+                    advance: bool = True, timed: bool = True,
+                    deliver: bool = False) -> Dict[str, ExecutionReport]:
+        """Execute EVERY channel, param-join AND spatial, in one fused call
+        per PLAN-GROUP: stacked candidate discovery per join group, the
+        stacked param join, the stacked spatial join (per-channel radii over
+        the stacked user sets), fused broker accounting.
+
+        ``flags=None`` partitions channels by their assigned ``ChannelPlan``
+        (``set_plan`` / engine default): channels sharing a plan run in ONE
+        fused call, each distinct plan in its own, with its own stacked
+        caches and retry ring. Explicit ``flags`` run every channel under
+        that plan on the engine backend (assignments are ignored, not
+        overwritten). Result-for-result equal to looping
+        ``execute_channel``; ``wall_time_s`` is the plan-group's wall
+        amortized per channel. ``deliver=True`` runs ``deliver_all`` inside
+        each group's call and surfaces per-channel ``DeliveryStats`` in
+        ``report.overflow``; a plan switch between calls migrates the
+        superseded group's ring through ``_flush_ring`` into the host
+        SpillQueue. A thin wrapper over ``execute(ExecutionRequest(...))``."""
+        return self.execute(plans.ExecutionRequest(
+            flags=flags, advance=advance, timed=timed, deliver=deliver))
+
+    def execute(self, request: plans.ExecutionRequest
+                ) -> Dict[str, ExecutionReport]:
+        """Run one ``ExecutionRequest``: every plan-group's fused call, then
+        the watermark advance, then each group's host half (one bulk
+        device->host copy per join group, SpillQueue pushes, conserving
+        DeliveryStats), in the reference's order."""
+        if request.resolve_spills:
+            raise _not_ported("the resolved spill lane "
+                              "(ExecutionRequest.resolve_spills)", "item 13")
+        reports: Dict[str, ExecutionReport] = {}
+        for g in self._execute_groups(request):
+            self._materialize_group(g, reports)
+        return reports
+
+    def _execute_groups(self, request: plans.ExecutionRequest
+                        ) -> List[_PendingGroup]:
+        """Resolve the request to one plan per requested channel, partition
+        the channels into plan-groups (first-channel order, so a
+        homogeneous resolution is one group), flush the rings of groups no
+        longer executing (full-engine requests only), run every group, and
+        advance the watermarks."""
+        deliver = request.deliver
+        ordered = sorted(self.channels.values(), key=lambda s: s.index)
+        if request.channels is not None:
+            unknown = set(request.channels) - set(self.channels)
+            if unknown:
+                raise KeyError(f"unknown channels: {sorted(unknown)}")
+            want = set(request.channels)
+            ordered = [st for st in ordered if st.spec.name in want]
+        if not ordered:
+            return []
+        forced = request.forced_plan(
+            "pallas" if self.use_pallas else "oracle")
+        groups: Dict[plans.ChannelPlan, Tuple[List, List]] = {}
+        for st in ordered:
+            p = forced or (st.plan or self.default_plan())
+            if forced is None and request.backend is not None:
+                p = dataclasses.replace(p, backend=request.backend)
+            g = groups.setdefault(p, ([], []))
+            (g[0] if st.spec.join == "param" else g[1]).append(st)
+        use_ring = deliver and self.ring_capacity > 0
+        if use_ring and request.channels is None:
+            # plan-switch ring migration: a ring whose (kind, plan,
+            # membership) no longer executes hands its entries to the host
+            # SpillQueue, tagged with the layout they were produced under
+            active = set()
+            for plan, (pchs, schs) in groups.items():
+                if pchs:
+                    active.add(("param", plan,
+                                tuple(st.spec.name for st in pchs)))
+                if schs:
+                    active.add(("spatial", plan,
+                                tuple(st.spec.name for st in schs)))
+            for k in [k for k in self._rings if k not in active]:
+                self._flush_ring(*self._rings.pop(k))
+        pending = [self._run_plan_group(plan, pchs, schs, request.timed,
+                                        deliver, use_ring)
+                   for plan, (pchs, schs) in groups.items()]
+        if request.advance:
+            bidx.advance_watermarks(
+                self.index_state,
+                torch.as_tensor([st.index for st in ordered],
+                                device=self.device))
+            for st in ordered:
+                st.last_exec_ts = self.now
+                st.last_exec_size = self.size_host
+                st.executions += 1
+        return pending
+
+    def _run_plan_group(self, plan: plans.ChannelPlan,
+                        param_chs: List[ChannelState],
+                        spatial_chs: List[ChannelState], timed: bool,
+                        deliver: bool, use_ring: bool) -> _PendingGroup:
+        """Gather one plan-group's stacked inputs and rings, run it, and
+        store its successor rings."""
+        chans = param_chs + spatial_chs
+        max_cand = self.max_candidates
+        if plan.scan_mode == "bad_index":
+            # shared shape bucket: the largest watermark delta across THIS
+            # group's channels, from one host read
+            pend = (self.index_state.counts
+                    - self.index_state.watermarks).cpu().numpy()
+            pending = max(int(pend[st.index]) for st in chans)
+            max_cand = min(_pow2_bucket(pending, 6), self.max_candidates)
+        # fused aggregated targets of an incremental engine are SLOT indices
+        # and its flat targets FLAT-slot indices, not build()'s compacted
+        # rows: spills carry the matching layout so a drain re-packs against
+        # the right table
+        if self.incremental:
+            p_layout = "slot" if plan.aggregation else "flat_slot"
+        else:
+            p_layout = plan.aggregation
+        p_names = tuple(st.spec.name for st in param_chs)
+        s_names = tuple(st.spec.name for st in spatial_chs)
+        p_in = s_in = p_ring = s_ring = None
+        if param_chs:
+            c = self._group_state(param_chs, plan.aggregation)
+            p_in = self._group_scalars(param_chs)
+            p_in.update(targets=c.targets, up_masks=c.up_masks,
+                        domains=c.domains, sids=c.sids)
+            if use_ring:
+                p_ring = self._ring_in(("param", plan, p_names), p_names,
+                                       len(param_chs))
+        if spatial_chs:
+            c = self._spatial_state(spatial_chs)
+            s_in = self._group_scalars(spatial_chs)
+            s_in.update(locs=c.locs, brokers=c.brokers,
+                        sids=torch.zeros((len(spatial_chs), 0), dtype=I32,
+                                         device=self.device))
+            if use_ring:
+                s_ring = self._ring_in(("spatial", plan, s_names), s_names,
+                                       len(spatial_chs))
+        if timed:
+            self._sync()
+        t0 = time.perf_counter()
+        res = self._run_group(plan, param_chs, spatial_chs, max_cand,
+                              deliver, p_in, s_in, p_ring, s_ring)
+        wall = 0.0
+        if timed:
+            self._sync()
+            wall = time.perf_counter() - t0
+        del_p, del_s = res[2], res[3]
+        if use_ring:
+            if param_chs:
+                self._rings[("param", plan, p_names)] = (
+                    p_names, p_layout, del_p.ring)
+            if spatial_chs:
+                self._rings[("spatial", plan, s_names)] = (
+                    s_names, plan.aggregation, del_s.ring)
+        return _PendingGroup(
+            plan=plan, param_chs=param_chs, spatial_chs=spatial_chs,
+            res=res, p_layout=p_layout, s_layout=plan.aggregation,
+            deliver=deliver, wall=wall, t0=t0,
+            p_epochs=[st.epoch for st in param_chs],
+            s_epochs=[st.epoch for st in spatial_chs])
+
+    def _materialize_group(self, g: _PendingGroup,
+                           reports: Dict[str, ExecutionReport]) -> None:
+        """Host half of one plan-group: ONE device->host copy per join group
+        (counts, bytes, delivery counters and spill streams together), then
+        per-channel reports; the pair grids stay on the device
+        (``report.result`` holds per-channel views)."""
+        res_p, res_s, del_p, del_s = g.res
+        wall = g.wall
+        for chs, res, dlv, layout, epochs in (
+                (g.param_chs, res_p, del_p, g.p_layout, g.p_epochs),
+                (g.spatial_chs, res_s, del_s, g.s_layout, g.s_epochs)):
+            if not chs:
+                continue
+            named = {"num_results": res.num_results,
+                     "num_notified": res.num_notified,
+                     "scanned": res.scanned,
+                     "broker_bytes": res.broker_bytes}
+            if g.deliver:
+                named.update(_delivery_tensors(dlv))
+            h = _host_arrays(named)
+            if not wall:
+                wall = time.perf_counter() - g.t0
+            stats = (self._spill_and_stats(chs, layout, h, epochs)
+                     if g.deliver else {})
+            pay = noti = None
+            if g.deliver and self.debug_delivery_buffers:
+                pay = dlv.pack.payload.cpu().numpy()
+                noti = dlv.fan.notify.cpu().numpy()
+            share = wall / max(len(g.param_chs) + len(g.spatial_chs), 1)
+            for i, st in enumerate(chs):
+                reports[st.spec.name] = ExecutionReport(
+                    channel=st.spec.name, flags=g.plan.flags, plan=g.plan,
+                    result=plans.ChannelResult(*(t[i] for t in res)),
+                    wall_time_s=share,
+                    num_results=int(h["num_results"][i]),
+                    num_notified=int(h["num_notified"][i]),
+                    scanned=int(h["scanned"][i]),
+                    broker_bytes=h["broker_bytes"][i],
+                    overflow=stats.get(st.spec.name),
+                    payload=None if pay is None else pay[i],
+                    notify=None if noti is None else noti[i])
+
+    # ------------------------------------------------------------------
+    # device-resident retry rings
+    # ------------------------------------------------------------------
+
+    def _ring_in(self, key, names: Tuple[str, ...],
+                 num_channels: int) -> RetryRing:
+        """The resident ring of one plan-group, or a fresh empty one when
+        the group's channel set changed (the old ring's entries are handed
+        to the host queue, never silently lost)."""
+        cur = self._rings.get(key)
+        if cur is not None:
+            if cur[0] == names:
+                return cur[2]
+            del self._rings[key]
+            self._flush_ring(*cur)
+        return empty_ring(num_channels, self.ring_capacity, self.device)
+
+    def _flush_ring(self, names: Tuple[str, ...], layout,
+                    ring: RetryRing) -> None:
+        """Push a ring's resident entries into the host SpillQueue (pairs
+        keep their recorded epoch as the staleness version). Entries past
+        the queue's capacity are lost, counted in ``ring_flush_drops``."""
+        h = _host_arrays(dict(zip(RetryRing._fields, ring)))
+        pc, sc = h["pair_count"], h["sid_count"]
+        rows, tgts = h["pair_rows"], h["pair_targets"]
+        eps, vals = h["pair_epochs"], h["sid_values"]
+        for i, name in enumerate(names):
+            n = int(pc[i])
+            if n:
+                for e in np.unique(eps[i, :n]).tolist():
+                    sel = eps[i, :n] == e
+                    acc = self.spill.push_pairs(name, layout,
+                                                rows[i, :n][sel],
+                                                tgts[i, :n][sel], int(e))
+                    self.ring_flush_drops += int(sel.sum()) - acc
+            m = int(sc[i])
+            if m:
+                acc = self.spill.push_sids(name, vals[i, :m])
+                self.ring_flush_drops += m - acc
+
+    def flush_rings(self) -> None:
+        """Hand every ring's resident entries to the host SpillQueue (for
+        ``drain_spilled``) and drop the rings."""
+        rings, self._rings = self._rings, {}
+        for names, layout, ring in rings.values():
+            self._flush_ring(names, layout, ring)
+
+    def ring_pending_pairs(self) -> int:
+        return sum(int(r.pair_count.sum()) for _, _, r in self._rings.values())
+
+    def ring_pending_sids(self) -> int:
+        return sum(int(r.sid_count.sum()) for _, _, r in self._rings.values())
+
+    # ------------------------------------------------------------------
+    # spill retry
+    # ------------------------------------------------------------------
+
+    def _synthetic_result(self, rows: np.ndarray,
+                          tgts: np.ndarray) -> plans.ChannelResult:
+        """A shape-bucketed ChannelResult holding exactly the given (row,
+        target) pairs: the drain path's re-entry into the broker stages."""
+        n = len(rows)
+        bucket = _pow2_bucket(n, 6)
+        rt = np.full((2, bucket), -1, np.int32)
+        rt[0, :n], rt[1, :n] = rows, tgts
+        both = torch.as_tensor(rt, device=self.device)
+        r, t = both[0], both[1]
+        valid = torch.arange(bucket, device=self.device) < n
+        z = torch.zeros((), dtype=I32, device=self.device)
+        zb = torch.zeros((self.brokers.num_brokers,), dtype=I32,
+                         device=self.device)
+        return plans.ChannelResult(r[:, None], t[:, None], valid[:, None], r,
+                                   valid, z, z, z, zb, zb)
+
+    def drain_spilled(self) -> Dict[str, DrainReport]:
+        """Re-deliver spilled notifications, exactly once per stage.
+
+        Pairs lane: pop up to ``max_deliver_pairs`` for ONE (channel, layout)
+        lane per channel per round and re-run the convert stage against the
+        channel's CURRENT table of that layout; entries whose channel
+        version moved (or whose channel was dropped) are unroutable and
+        counted as dropped. Sids lane: pop up to ``max_notify`` per channel
+        and re-run the send stage (raw sIDs never go stale). Anything that
+        misses this round's buffers is requeued at the front: never
+        duplicated, never lost. Call once per tick until
+        ``spill.pending_pairs() + spill.pending_sids() == 0``."""
+        out: Dict[str, DrainReport] = {}
+        pw, dev = self.deliver_payload_words, self.device
+
+        def merge(name: str, rep: DrainReport) -> None:
+            prev = out.get(name)
+            if prev is None:
+                out[name] = rep
+            else:
+                out[name] = DrainReport(
+                    prev.stats.merged(rep.stats),
+                    rep.payload if prev.payload is None else prev.payload,
+                    rep.notify if prev.notify is None else prev.notify)
+
+        drained_pairs = set()
+        # resolved lane first: entries whose fanout was resolved against the
+        # producing call's own table re-enter with their recorded sID rows
+        # as the table (filled only by the deferred-sync runtime, item 13)
+        for name in self.spill.resolved_keys():
+            if name in drained_pairs:
+                continue
+            drained_pairs.add(name)
+            rows, tgts, sid_rows = self.spill.pop_resolved(
+                name, self.max_deliver_pairs)
+            dropped = delivered = respilled = 0
+            payload = None
+            if name not in self.channels:
+                dropped = len(rows)
+            elif len(rows):
+                n = len(rows)
+                res = self._synthetic_result(rows,
+                                             np.arange(n, dtype=np.int32))
+                tbl = np.full((_pow2_bucket(n, 6), sid_rows.shape[1]), -1,
+                              np.int32)
+                tbl[:n] = sid_rows
+                payload, dlv, _ = pack_payloads(res, torch.as_tensor(
+                    tbl, device=dev), pw, self.max_deliver_pairs)
+                delivered = int(dlv)
+                payload[:delivered, 1] = torch.as_tensor(tgts[:delivered],
+                                                         device=dev)
+                if delivered < n:   # exact in-order prefix delivered
+                    self.spill._push_front_resolved(
+                        name, rows[delivered:], tgts[delivered:],
+                        sid_rows[delivered:])
+                    respilled = n - delivered
+            if delivered or dropped or respilled:
+                merge(name, DrainReport(
+                    DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
+                    payload=payload))
+
+        for name, layout in self.spill.pair_keys():
+            if name in drained_pairs:
+                # one pair lane per channel per round: the layouts re-pack
+                # against different tables with different wire widths
+                continue
+            drained_pairs.add(name)
+            st = self.channels.get(name)
+            version = st.epoch if st is not None else None
+            rows, tgts, stale = self.spill.pop_pairs(
+                name, layout, self.max_deliver_pairs, version)
+            dropped = stale
+            payload = None
+            delivered = respilled = 0
+            if st is None:
+                dropped += len(rows)
+            elif len(rows):
+                res = self._synthetic_result(rows, tgts)
+                if st.spec.join == "spatial":
+                    sids = torch.zeros((0,), dtype=I32, device=dev)
+                else:
+                    sids = self._sid_table(st, layout)
+                payload, dlv, _ = pack_payloads(res, sids, pw,
+                                                self.max_deliver_pairs)
+                delivered = int(dlv)
+                if delivered < len(rows):   # exact in-order prefix delivered
+                    self.spill._push_front_pairs(
+                        name, layout, rows[delivered:], tgts[delivered:],
+                        st.epoch)
+                    respilled = len(rows) - delivered
+            if delivered or dropped or respilled:
+                merge(name, DrainReport(
+                    DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
+                    payload=payload))
+
+        for name in self.spill.sid_keys():
+            sids = self.spill.pop_sids(name, self.max_notify)
+            if not len(sids):
+                continue
+            # identity fanout: targets ARE the sIDs, so the send stage
+            # re-emits them verbatim in spill order
+            res = self._synthetic_result(sids, sids)
+            buf, dlv, _ = fanout_sids(res, torch.zeros((0,), dtype=I32,
+                                                       device=dev),
+                                      self.max_notify)
+            delivered = int(dlv)
+            respilled = len(sids) - delivered
+            if respilled:
+                self.spill._push_front_sids(name, sids[delivered:])
+            merge(name, DrainReport(
+                DeliveryStats(0, 0, 0, delivered, respilled, 0),
+                notify=buf))
+        return out
 
     # ------------------------------------------------------------------
     # paths of the reference engine that later slices port
     # ------------------------------------------------------------------
-
-    def execute_all(self, *args, **kwargs):
-        raise _not_ported("fused multi-channel execution (execute_all)",
-                          "item 8")
-
-    def execute(self, *args, **kwargs):
-        raise _not_ported("fused multi-channel execution (execute)", "item 8")
 
     def dispatch_all(self, *args, **kwargs):
         raise _not_ported("the dispatch/sync split (dispatch_all)", "item 13")
@@ -783,11 +1728,43 @@ class BADEngine:
     def dispatch(self, *args, **kwargs):
         raise _not_ported("the dispatch/sync split (dispatch)", "item 13")
 
-    def drain_spilled(self) -> Dict[str, DrainReport]:
-        raise _not_ported("drain_spilled", "item 8")
-
     def set_enrichment(self, stage) -> bool:
         raise _not_ported("the enrichment stage", "item 14")
+
+
+def _delivery_tensors(d: FusedDelivery) -> Dict[str, torch.Tensor]:
+    """The delivery outputs the host half reads, by name (ring counters
+    included when the delivery was ring-aware)."""
+    named = {"pack_delivered": d.pack.delivered,
+             "pack_produced": d.pack.produced,
+             "fan_delivered": d.fan.delivered,
+             "fan_produced": d.fan.produced,
+             "per_broker": d.pack.per_broker,
+             "pair_valid": d.pair_spill.valid,
+             "pair_rows": d.pair_spill.rows,
+             "pair_channels": d.pair_spill.channels,
+             "pair_targets": d.pair_spill.targets,
+             "sid_valid": d.sid_spill.valid,
+             "sid_values": d.sid_spill.values,
+             "sid_channels": d.sid_spill.channels}
+    if d.counters is not None:
+        named.update(zip(RingCounters._fields, d.counters))
+    return named
+
+
+def _host_arrays(named: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Read many small tensors with ONE device->host copy: each is
+    flattened to int32, concatenated, copied once and split back into numpy
+    arrays of its own shape (bools restored)."""
+    host = torch.cat([t.reshape(-1).to(I32)
+                      for t in named.values()]).cpu().numpy()
+    out, at = {}, 0
+    for k, t in named.items():
+        n = t.numel()
+        a = host[at:at + n].reshape(tuple(t.shape))
+        out[k] = a.astype(bool) if t.dtype == torch.bool else a
+        at += n
+    return out
 
 
 def _pow2_bucket(n: int, floor_bits: int) -> int:
@@ -795,6 +1772,21 @@ def _pow2_bucket(n: int, floor_bits: int) -> int:
     return 1 << max(floor_bits, (max(n, 1) - 1).bit_length())
 
 
+# Compacted-stream capacity policy: streams start at 2**_STREAM_FLOOR
+# entries, run at the power-of-two bucket of the live total when it would
+# overflow the remembered bucket, and halve after _STREAM_PATIENCE
+# consecutive runs at <= half occupancy, so buckets converge to the
+# workload's live-candidate envelope.
+_STREAM_FLOOR = 7
+_STREAM_PATIENCE = 8
+
+
 def _pred_rank(p) -> int:
     """Heuristic selectivity rank for picking the traditional-index field."""
     return 2 if p.op == EQ else 1
+
+
+def _best_pred(st: ChannelState) -> int:
+    """The channel's traditional-index predicate: its most selective."""
+    preds = st.spec.fixed_preds
+    return int(np.argmax([_pred_rank(p) for p in preds])) if preds else 0

@@ -20,6 +20,14 @@
 //   and t2 are staged in shared memory once per block. Each thread walks the
 //   32 tweet rows and writes one byte per row; a warp's 32 bytes are
 //   consecutive along U, so the stores coalesce.
+//
+// Second entry, spatial_match_stacked_launch: the fused spatial join's
+//   stacked form (the reference vmaps its kernel over the channel axis,
+//   spatial_match/ops.py). (C, R, 2) tweets x (C, U, 2) users with one r2
+//   per channel (a (C,) float32 array on the device) -> (C, R, U) hit map.
+//   The same tile scheme with a third grid axis over the channels; the same
+//   fixed float32 order without FMA, so it stays bit-equal to its plain
+//   version. Bound: memory, C*R*U bytes written.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -28,10 +36,18 @@ namespace {
 constexpr int kUsers = 256;
 constexpr int kTweets = 32;
 
+// Channel c = blockIdx.z reads tweets + c*2r and users + c*2u and writes
+// out + c*r*u; r2 is r2s[c] (r2s null: the scalar r2 for every channel).
 __global__ void spatial_match_kernel(const float* __restrict__ tweets,
                                      const float* __restrict__ users,
                                      uint8_t* __restrict__ out, int r, int u,
-                                     float r2) {
+                                     float r2,
+                                     const float* __restrict__ r2s) {
+  const int64_t c = blockIdx.z;
+  tweets += c * 2 * r;
+  users += c * 2 * u;
+  out += c * r * u;
+  if (r2s != nullptr) r2 = r2s[c];
   __shared__ float s_t0[kTweets];
   __shared__ float s_t1[kTweets];
   __shared__ float s_t2[kTweets];
@@ -73,6 +89,22 @@ extern "C" int spatial_match_launch(const void* tweets, const void* users,
   spatial_match_kernel<<<grid, kUsers, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tweets), static_cast<const float*>(users),
-      static_cast<uint8_t*>(out), r, u, r2);
+      static_cast<uint8_t*>(out), r, u, r2, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int spatial_match_stacked_launch(const void* tweets,
+                                            const void* users, void* out,
+                                            const void* r2s, int c, int r,
+                                            int u, void* stream) {
+  if (c <= 0 || r <= 0 || u <= 0) return 0;
+  const dim3 grid((u + kUsers - 1) / kUsers, (r + kTweets - 1) / kTweets, c);
+  if (grid.y > 65535 || grid.z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  spatial_match_kernel<<<grid, kUsers, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tweets), static_cast<const float*>(users),
+      static_cast<uint8_t*>(out), r, u, 0.0f,
+      static_cast<const float*>(r2s));
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -99,8 +100,21 @@ def library() -> ctypes.CDLL:
         lib.predicate_filter_launch.restype = i
         lib.spatial_match_launch.argtypes = [p, p, p, i, i, f, p]
         lib.spatial_match_launch.restype = i
+        lib.predicate_filter_rows_launch.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.predicate_filter_rows_launch.restype = i
+        lib.spatial_match_stacked_launch.argtypes = [p, p, p, p, i, i, i, p]
+        lib.spatial_match_stacked_launch.restype = i
+        lib.join_compact_launch.argtypes = [p] * 10 + [i, i, i, i, p]
+        lib.join_compact_launch.restype = i
         _lib = lib
     return _lib
+
+
+def larger(shape: Optional[tuple], new: tuple) -> tuple:
+    """The larger of two launch shapes by element count (``shape`` may be
+    None): what a wrapper keeps beside its launch count."""
+    return (new if shape is None or math.prod(new) > math.prod(shape)
+            else shape)
 
 
 def check(code: int, name: str) -> None:

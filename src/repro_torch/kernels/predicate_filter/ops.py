@@ -4,6 +4,9 @@ Handles the cached conditionsList canonicalization and picks the version by
 the tensor's device: a CPU tensor runs the plain version in ``ref.py``, a
 CUDA tensor launches ``csrc/predicate_filter.cu`` (or raises). The kernel
 masks the ragged tail itself, so no padding happens here.
+``predicate_filter_rows`` is the stacked (C, N, F) -> (C, N) form of the
+fused discovery, with its own entry in the same source and its own launch
+count.
 """
 from __future__ import annotations
 
@@ -16,8 +19,13 @@ import torch
 from repro_torch.core.predicates import CompiledConditions
 from repro_torch.kernels.predicate_filter import ref
 
-# launches of the CUDA kernel in this process (never the plain version)
+# launches of the CUDA kernels in this process (never the plain versions):
+# the (N, F) -> (N, C) entry and the stacked rows entry; beside each, the
+# largest shape it launched, (N, F, C) and (C, N, F)
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
+SHAPE = None
+ROWS_SHAPE = None
 
 _CANON_CACHE: Dict[Tuple, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
 _TABLE_CACHE: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
@@ -62,18 +70,54 @@ def predicate_filter_padded(fields: torch.Tensor, lo: torch.Tensor,
     return _launch(fields, lo, hi, neq)
 
 
+def predicate_filter_rows(fields: torch.Tensor,
+                          conds: CompiledConditions) -> torch.Tensor:
+    """(C, N, F) stacked row blocks -> (C, N) bool: channel c's conjunction
+    evaluated on its own block only (the fused window / candidate-recheck
+    shape, where each channel gathers a different row window)."""
+    lo, hi, neq = _device_tables(conds, int(fields.shape[-1]), fields.device)
+    if fields.device.type == "cpu":
+        return ref.predicate_filter_rows(fields, lo, hi, neq)
+    return _launch_rows(fields, lo, hi, neq)
+
+
+def _check(name: str, fields, tables, shapes) -> None:
+    for tname, t, shape in zip(("fields", "lo", "hi", "neq"), tables, shapes):
+        if (t.device != fields.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tname} must be a contiguous int32 "
+                             f"{shape} tensor on {fields.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _launch_rows(fields, lo, hi, neq) -> torch.Tensor:
+    global ROWS_LAUNCHES, ROWS_SHAPE
+    from repro_torch.kernels import _build
+    c, n, f = fields.shape
+    _check("predicate_filter_rows", fields, (fields, lo, hi, neq),
+           ((c, n, f), (c, f), (c, f), (c, f)))
+    out = torch.empty((c, n), dtype=torch.bool, device=fields.device)
+    if n == 0 or c == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(fields.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.predicate_filter_rows_launch(
+            fields.data_ptr(), lo.data_ptr(), hi.data_ptr(), neq.data_ptr(),
+            out.data_ptr(), c, n, f, ctypes.c_void_p(stream))
+    _build.check(code, "predicate_filter_rows")
+    ROWS_LAUNCHES += 1
+    ROWS_SHAPE = _build.larger(ROWS_SHAPE, (c, n, f))
+    return out
+
+
 def _launch(fields, lo, hi, neq) -> torch.Tensor:
-    global LAUNCHES
+    global LAUNCHES, SHAPE
     from repro_torch.kernels import _build
     n, f = fields.shape
     c = lo.shape[0]
-    for name, t, shape in (("fields", fields, (n, f)), ("lo", lo, (c, f)),
-                           ("hi", hi, (c, f)), ("neq", neq, (c, f))):
-        if (t.device != fields.device or t.dtype != torch.int32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"predicate_filter: {name} must be a contiguous "
-                             f"int32 {shape} tensor on {fields.device}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check("predicate_filter", fields, (fields, lo, hi, neq),
+           ((n, f), (c, f), (c, f), (c, f)))
     out = torch.empty((n, c), dtype=torch.bool, device=fields.device)
     if n == 0 or c == 0:
         return out
@@ -85,4 +129,5 @@ def _launch(fields, lo, hi, neq) -> torch.Tensor:
             out.data_ptr(), n, f, c, ctypes.c_void_p(stream))
     _build.check(code, "predicate_filter")
     LAUNCHES += 1
+    SHAPE = _build.larger(SHAPE, (n, f, c))
     return out

@@ -68,3 +68,13 @@ def predicate_filter(fields: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     ok = (x >= lo[None]) & (x <= hi[None])      # (N, C, F)
     ok &= (x != neq[None]) | (neq[None] == NEQ_NONE)
     return ok.all(dim=-1)
+
+
+def predicate_filter_rows(fields: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, neq: torch.Tensor) -> torch.Tensor:
+    """(C, N, F) int32 row blocks x (C, F) intervals -> (C, N) bool: block
+    c against table row c only. Plain version."""
+    lo, hi, neq = lo[:, None, :], hi[:, None, :], neq[:, None, :]
+    ok = (fields >= lo) & (fields <= hi)        # (C, N, F)
+    ok &= (fields != neq) | (neq == NEQ_NONE)
+    return ok.all(dim=-1)

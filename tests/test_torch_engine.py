@@ -18,6 +18,7 @@ from repro_torch.core import channel as tch  # noqa: E402
 from repro_torch.core import interop  # noqa: E402
 from repro_torch.core import records as TR  # noqa: E402
 from repro_torch.core.engine import BADEngine as TEngine  # noqa: E402
+from repro_torch.core import plans as TPlans  # noqa: E402
 from repro_torch.core.plans import ExecutionFlags as TFlags  # noqa: E402
 
 from torch_parity import (assert_same, assert_same_tuple,  # noqa: E402
@@ -192,12 +193,11 @@ def test_device_rule_and_paths_not_ported_yet():
             TEngine()
     eng = TEngine(dataset_capacity=64, index_capacity=16, device="cpu")
     eng.create_channel(tch.tweets_about_crime(1))
-    for call in (eng.execute_all, eng.execute, eng.dispatch, eng.dispatch_all,
-                 eng.drain_spilled, lambda: eng.subscribe_users(
-                     "TweetsAboutCrime1", [0]),
+    for call in (eng.dispatch, eng.dispatch_all,
+                 lambda: eng.execute(TPlans.ExecutionRequest(
+                     resolve_spills=True)),
+                 lambda: eng.subscribe_users("TweetsAboutCrime1", [0]),
                  lambda: eng.set_enrichment(object()),
-                 lambda: eng.execute_channel("TweetsAboutCrime1",
-                                             TFlags(), backend="compact"),
                  lambda: TEngine(device="cpu", enrichment=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -209,3 +209,9 @@ def test_device_rule_and_paths_not_ported_yet():
                                   torch.zeros((1, 2))))
     stats = eng.maintenance
     assert dataclasses.astuple(stats) == (0, 0, 0)
+    # the fused slice's paths run
+    assert set(eng.execute_all(deliver=True)) == {"TweetsAboutCrime1"}
+    assert eng.execute_channel("TweetsAboutCrime1", TFlags(),
+                               backend="compact").num_results == 0
+    assert eng.drain_spilled() == {}
+    eng.flush_rings()

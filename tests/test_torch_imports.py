@@ -45,7 +45,8 @@ def test_forbidden_rule_itself():
 def test_engine_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.core.engine, "
             "repro_torch.kernels.predicate_filter.ops, "
-            "repro_torch.kernels.spatial_match.ops, repro_torch.core.interop; "
+            "repro_torch.kernels.spatial_match.ops, repro_torch.core.interop, "
+            "repro_torch.kernels.join_compact.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.predicates import Predicate, compile_conditions  # noqa: E402
+from repro_torch.kernels.join_compact import ops as jc_ops  # noqa: E402
+from repro_torch.kernels.join_compact import ref as jc_ref  # noqa: E402
 from repro_torch.kernels.predicate_filter import ops as pf_ops  # noqa: E402
 from repro_torch.kernels.predicate_filter import ref as pf_ref  # noqa: E402
 from repro_torch.kernels.spatial_match import ops as sm_ops  # noqa: E402
@@ -76,6 +78,63 @@ def test_spatial_match_kernel_matches_plain(rng, cuda_device):
     assert sm_ops.LAUNCHES == before + 4
 
 
+def test_predicate_filter_rows_kernel_matches_plain(rng, cuda_device):
+    before = pf_ops.ROWS_LAUNCHES
+    for c, n in ((1, 1), (3, 255), (3, 257), (5, 9000)):
+        fields = torch.as_tensor(rng.integers(-50, 50, (c, n, 10))
+                                 .astype(np.int32), device=cuda_device)
+        conds = _conds(rng, c)
+        lo, hi, neq = (torch.as_tensor(a, device=cuda_device)
+                       for a in pf_ops.canonical_arrays(conds, 10))
+        got = pf_ops.predicate_filter_rows(fields, conds)
+        assert got.is_cuda and got.dtype == torch.bool and got.shape == (c, n)
+        assert torch.equal(got, pf_ref.predicate_filter_rows(fields, lo, hi,
+                                                             neq))
+    torch.cuda.synchronize()
+    assert pf_ops.ROWS_LAUNCHES == before + 4
+
+
+def test_spatial_match_stacked_kernel_matches_plain(rng, cuda_device):
+    before = sm_ops.STACKED_LAUNCHES
+    for c, r, u in ((1, 1, 1), (3, 300, 700), (3, 33, 10000)):
+        t = torch.as_tensor(rng.uniform(-100, 100, (c, r, 2))
+                            .astype(np.float32), device=cuda_device)
+        us = torch.as_tensor(rng.uniform(-100, 100, (c, u, 2))
+                             .astype(np.float32), device=cuda_device)
+        us[:, u // 2:] = -sm_ops.FAR          # the engine's padded users
+        radius = torch.linspace(5.0, 20.0, c, device=cuda_device)
+        got = sm_ops.spatial_match(t, us, radius)
+        assert got.is_cuda and got.dtype == torch.bool
+        assert torch.equal(got, sm_ops.spatial_match_plain(t, us, radius))
+        assert not got[:, :, u // 2:].any()
+    torch.cuda.synchronize()
+    assert sm_ops.STACKED_LAUNCHES == before + 3
+
+
+def test_join_compact_kernel_matches_plain(rng, cuda_device):
+    before = jc_ops.LAUNCHES
+    for s, max_t in ((1, 1), (37, 5), (1000, 33), (4099, 64)):
+        args = (rng.integers(-1, 20, (s, max_t)).astype(np.int32),
+                rng.integers(0, max_t + 1, s).astype(np.int32),
+                rng.integers(0, 9, (s, max_t)).astype(np.int32),
+                rng.integers(0, 3, (s, max_t)).astype(np.int32),
+                rng.random(s) < 0.7,
+                (2 ** 31 - 1 - rng.integers(0, 40, s)).astype(np.int32))
+        dev = [torch.as_tensor(a, device=cuda_device) for a in args]
+        for aggregated in (False, True):
+            got = jc_ops.join_pairs(*dev, 3, aggregated)
+            want = jc_ref.join_pairs(*dev, 3, aggregated)
+            assert got[0].dtype == torch.bool
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g, w)
+    torch.cuda.synchronize()
+    assert jc_ops.LAUNCHES == before + 8
+    jc_ops.SHAPE = None
+    jc_ops.join_pairs(*dev, 3, True)
+    jc_ops.join_pairs(*(a[:1000].contiguous() for a in dev), 3, True)
+    assert jc_ops.SHAPE == (4099, 64)      # the largest launch is kept
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros((4, 10), dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
@@ -83,3 +142,8 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     t = torch.zeros((4, 3), dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="float32"):
         sm_ops.spatial_match(t, t, 1.0)
+    i32 = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="valid"):
+        jc_ops.join_pairs(i32, i32[:, 0].contiguous(), i32, i32,
+                          i32[:, 0].contiguous(), i32[:, 0].contiguous(), 2,
+                          False)
