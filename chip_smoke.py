@@ -31,13 +31,28 @@ exits non-zero, printing no result, without them. Phases:
 5. Every plan: the seven plans of the paper's plan-equivalence test through
    ``execute_channel`` on both padded backends and through ``execute_all``
    on all four; all notify the same subscribers and match the same rows.
+6. Serve: qwen2-1.5b at its published width and depth (28 layers, bf16,
+   seeded weights) through ``launch/serve.py::serve`` at batch 8, prompt
+   512, 32 generated tokens: 28 ``flash_attention`` launches in the prefill
+   and 28 x 31 ``flash_decode`` in the decode; then cached decode against
+   the teacher-forced forward for 3 tokens.
+7. The enriched fused tick: phase 3's engine with ``LMScorer`` (qwen2-1.5b
+   at full width, budget 4,096) attached, ``execute_all(None,
+   deliver=True)`` + ``drain_spilled()``: conservation with the ranked
+   counts, ``ranked_pairs`` == max(0, produced - budget) per channel, the
+   rank rule checked on the host for one tick, 28 ``flash_attention``
+   launches per scored group.
 
-Last, every kernel entry is held against its plain version, exactly, and
-timed (a CUDA graph of wrapper calls, the wrapper and the plain version
-between CUDA events) beside its bound, on seeded inputs at the largest shape
-a path above gave it (each wrapper keeps that shape beside its launch
-count). The line before the last is a JSON object with one entry per kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+Phase 1 also holds the two attention kernels against their plain versions
+on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
+bfloat16, the reference kernel test's). Last, every kernel entry is held
+against its plain version and timed (a CUDA graph of wrapper calls, the
+wrapper and the plain version between CUDA events) beside its bound and,
+for the attention kernels, PyTorch's ``scaled_dot_product_attention``, on
+seeded inputs at the largest shape a path above gave it (each wrapper keeps
+that shape beside its launch count). The line before the last is a JSON
+object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -57,7 +72,22 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 SEED = 0
+# the attention kernels against their plain versions, (atol, rtol) with
+# |kernel - plain| <= atol + rtol |plain| per element: the reference kernel
+# test's 3e-5 (float32) and 2e-2 (bf16, tests/test_kernels.py), and in bf16
+# one more rounding step of the output (2^-7 |plain|): both versions round
+# their float32 result to bf16 once, and the plain version's bf16 softmax
+# weights move it across a rounding boundary, a step of 0.031 for outputs
+# of magnitude 4 to 8 (the scorer's S = 10 averages few values)
+FLASH_TOL = {torch.float32: (3e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -7)}
+# cached decode against the teacher-forced forward at full width in bf16:
+# relative L2 error of each compared token's logits, and max abs error
+# (the logits' std is about 1 with seeded weights); a wrong cache position,
+# RoPE angle or mask gives errors of order 1
+DECODE_REL_L2 = 0.05
+DECODE_MAX_ABS = 0.5
 
 
 def card_line() -> str:
@@ -107,11 +137,33 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b|: in int32 for integer and bool outputs, in float64
+    for floating ones; equal infinities count 0, a NaN or an unmatched
+    infinity fails."""
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
         return 0.0
-    return float((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+    if not a.is_floating_point():
+        return float((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+    a, b = a.double(), b.double()
+    same_inf = torch.isinf(a) & (a == b)
+    assert not (torch.isnan(a).any() or torch.isnan(b).any()), "NaN"
+    assert torch.equal(torch.isinf(a), torch.isinf(b)), "infinities differ"
+    return float(torch.where(same_inf, 0.0, a - b).abs().max())
+
+
+def tol_excess(a: torch.Tensor, b: torch.Tensor, atol: float,
+               rtol: float) -> float:
+    """The largest amount by which |a - b| passes atol + rtol |b| (<= 0:
+    within tolerance); equal infinities count 0."""
+    if a.numel() == 0:
+        return 0.0
+    a, b = a.double(), b.double()
+    same_inf = torch.isinf(b) & (a == b)
+    diff = torch.where(same_inf, 0.0, (a - b).abs())
+    room = atol + rtol * torch.where(torch.isinf(b), 0.0, b.abs())
+    return float((diff - room).max())
 
 
 def channel_specs():
@@ -224,6 +276,75 @@ def edge_parity(dev) -> None:
     torch.cuda.synchronize()
 
 
+def flash_edge_parity(dev) -> dict:
+    """Both attention kernels against their plain versions on their edge
+    cases, within ``FLASH_TOL``: ``flash_attention`` with S = 1, the
+    scorer's S = 10, S off every tile (33, 97, 300), a tile-aligned S, each
+    head dim (16 to 128), G = 1 and 6, causal and full, float32 and bf16;
+    ``flash_decode`` with kv_len 0, 1, ragged and the full cache, G = 1 and
+    6, a cache longer than one split, both types (partials: m exactly
+    -inf where no key is live, l = 0 and acc = 0 there; elsewhere within
+    2e-5 + 1e-5 relative). Returns the largest error per kernel and type."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    rng = np.random.default_rng(SEED + 11)
+
+    def normal(shape, dtype):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev).to(dtype)
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        (atol, rtol), name = FLASH_TOL[dtype], str(dtype).split(".")[-1]
+        for b, h, kh, s, d, causal in (
+                (1, 1, 1, 1, 16, True), (1, 6, 1, 1, 128, False),
+                (3, 12, 2, 10, 128, True), (2, 12, 2, 10, 128, False),
+                (2, 6, 6, 33, 32, True), (1, 6, 1, 97, 64, True),
+                (1, 12, 2, 300, 128, True), (2, 4, 2, 256, 64, False),
+                (1, 2, 1, 128, 16, False)):
+            q = normal((b, h, s, d), dtype)
+            k, v = normal((b, kh, s, d), dtype), normal((b, kh, s, d), dtype)
+            got = fa_ops.flash_attention(q, k, v, causal=causal).float()
+            want = fa_ref.flash_attention(q, k, v, causal=causal).float()
+            err = max_abs_err(got, want)
+            assert tol_excess(got, want, atol, rtol) <= 0, (
+                "flash_attention", b, h, kh, s, d, causal, dtype, err)
+            worst[f"flash_attention_{name}"] = max(
+                worst.get(f"flash_attention_{name}", 0.0), err)
+        for b, h, kh, s, d in ((4, 1, 1, 64, 16), (4, 12, 2, 544, 128),
+                               (4, 6, 6, 100, 32), (4, 6, 1, 5000, 64)):
+            q = normal((b, h, d), dtype)
+            k, v = normal((b, kh, s, d), dtype), normal((b, kh, s, d), dtype)
+            kv_len = torch.tensor([0, 1, s, int(rng.integers(2, s))],
+                                  dtype=torch.int32, device=dev)
+            got = fd_ops.decode_attention_partial(q, k, v, kv_len)
+            want = fd_ref.decode_attention_partial(q, k, v, kv_len)
+            assert torch.isneginf(got[1][0]).all() and not got[2][0].any() \
+                and not got[0][0].any(), "flash_decode kv_len = 0"
+            for g, w in zip(got, want):
+                err = max_abs_err(g, w)
+                scale = float(torch.where(torch.isinf(w), 0.0, w).abs().max())
+                assert err <= 2e-5 + 1e-5 * scale, ("flash_decode", b, h, kh,
+                                                     s, d, dtype, err)
+            out = fd_ops.decode_attention(q, k, v, kv_len).float()
+            want = fd_ref.decode_attention(q, k, v, kv_len).float()
+            err = max_abs_err(out, want)
+            assert tol_excess(out, want, atol, rtol) <= 0 \
+                and not out[0].any(), ("flash_decode", dtype, err)
+            worst[f"flash_decode_{name}"] = max(
+                worst.get(f"flash_decode_{name}", 0.0), err)
+    sync(dev)
+    return worst
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 # Each case builds seeded inputs at the shape a path gave the entry and
 # returns its wrapper and plain version as calls on them, and the bytes and
 # operations of its bound.
@@ -313,6 +434,64 @@ def case_join_compact(dev, rng, shape, aggregated: bool) -> dict:
                 bound_ops=8 * s_len * max_t)
 
 
+def case_flash_attention(dev, rng, shape, causal: bool = True) -> dict:
+    """bf16 q, k, v at the launched (B, H, KH, S, D). Bound: the larger of
+    the live products (4 D operations per (query, key) pair under the causal
+    mask) over the bf16 tensor-core rate and q, k, v, out once over the
+    memory rate. Library: SDPA with GQA and the causal mask."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    b, h, kh, s_len, d = shape
+
+    def normal(*sh):
+        return torch.tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    q, k, v = normal(b, h, s_len, d), normal(b, kh, s_len, d), \
+        normal(b, kh, s_len, d)
+    pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(wrapper=lambda: fa_ops.flash_attention(q, k, v, causal=causal),
+                plain=lambda: fa_ref.flash_attention(q, k, v, causal=causal),
+                library=lambda: sdpa(q, k, v, is_causal=causal,
+                                     enable_gqa=True),
+                bound_bytes=2 * (2 * b * h * s_len * d + 2 * b * kh * s_len * d),
+                bound_ops=4 * b * h * d * pairs,
+                ops_per_s=BF16_TENSOR_OPS_PER_S,
+                tolerance=FLASH_TOL[torch.bfloat16])
+
+
+def case_flash_decode(dev, rng, shape) -> dict:
+    """bf16 q and cache at the launched (B, H, KH, S, D), every row live up
+    to S - 1 keys (the last decode step of the serve phase). Wrapper and
+    plain version are the normalised ``decode_attention`` that
+    ``attn_decode`` calls. Bound: q, the K/V rows up to kv_len and the
+    output once over the memory rate. Library: SDPA with GQA and the
+    kv_len mask."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    b, h, kh, s_len, d = shape
+    live = s_len - 1
+
+    def normal(*sh):
+        return torch.tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    q, k, v = normal(b, h, d), normal(b, kh, s_len, d), normal(b, kh, s_len, d)
+    kv_len = torch.full((b,), live, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s_len, device=dev) < live)[None, None, None, :] \
+        .expand(b, 1, 1, s_len)
+    q4 = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return dict(wrapper=lambda: fd_ops.decode_attention(q, k, v, kv_len),
+                plain=lambda: fd_ref.decode_attention(q, k, v, kv_len),
+                library=lambda: sdpa(q4, k, v, attn_mask=mask,
+                                     enable_gqa=True),
+                bound_bytes=2 * (2 * b * h * d + 2 * b * kh * live * d),
+                bound_ops=4 * b * h * d * live,
+                tolerance=FLASH_TOL[torch.bfloat16])
+
+
 def join_compact_bytes(tgt, tgt_n, members, brokers, valid, payload) -> int:
     """The bytes ``join_compact`` must move on these inputs: its four
     outputs (13 B an entry), 9 B of ``valid``, ``tgt_n`` and ``payload`` a
@@ -335,32 +514,41 @@ def join_compact_bytes(tgt, tgt_n, members, brokers, valid, payload) -> int:
 
 def measure(case: dict, shape: str) -> dict:
     """One kernel entry at one shape: held against its plain version
-    (``max_abs_err``); ``ms`` from a CUDA graph of wrapper calls (only what
-    the wrapper enqueues, so no host work sits between the launches),
-    ``wrapper_ms`` and ``plain_ms`` from calls between CUDA events; beside
-    its bound."""
+    (``max_abs_err``; within the case's (atol, rtol) ``tolerance``, exact
+    unless given);
+    ``ms`` from a CUDA graph of wrapper calls (only what the wrapper
+    enqueues, so no host work sits between the launches), ``wrapper_ms``,
+    ``plain_ms`` and, where one PyTorch call computes the same function,
+    ``library_ms`` from calls between CUDA events; beside its bound."""
     got, want = case["wrapper"](), case["plain"]()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    atol, rtol = case.get("tolerance", (0.0, 0.0))
+    excess = max(tol_excess(g, w, atol, rtol) for g, w in zip(got, want))
     del got, want
-    k = with_bound(dict(shape=shape, max_abs_err=err,
+    k = with_bound(dict(shape=shape, max_abs_err=err, tolerance=atol,
+                        tolerance_rel=rtol, within_tolerance=excess <= 0,
                         bound_bytes=case["bound_bytes"],
-                        bound_ops=case["bound_ops"]))
+                        bound_ops=case["bound_ops"]),
+                   case.get("ops_per_s", CUDA_CORE_OPS_PER_S))
     # about 10 ms of kernel at the bound per timing, 5 to 100 calls
     iters = int(min(100, max(5, 10 / k["bound_ms"])))
     k.update(ms=graph_ms(case["wrapper"], iters),
              wrapper_ms=cuda_ms(case["wrapper"], iters),
-             plain_ms=cuda_ms(case["plain"], max(3, iters // 10)))
+             plain_ms=cuda_ms(case["plain"], max(3, iters // 10)),
+             library_ms=(cuda_ms(case["library"], iters)
+                         if "library" in case else None))
     torch.cuda.empty_cache()
     return k
 
 
-def with_bound(k: dict) -> dict:
+def with_bound(k: dict, ops_per_s: float = CUDA_CORE_OPS_PER_S) -> dict:
     """Add ``bound_ms`` (the larger of bytes over the memory rate and
-    operations over the CUDA cores' rate) and ``bound_by`` to a timing."""
+    operations over ``ops_per_s``: the CUDA cores' float32 rate unless the
+    work is bf16 products for the tensor cores) and ``bound_by``."""
     by_bytes = k["bound_bytes"] / HBM_BYTES_PER_S
-    by_ops = k["bound_ops"] / CUDA_CORE_OPS_PER_S
+    by_ops = k["bound_ops"] / ops_per_s
     k["bound_ms"] = 1e3 * max(by_bytes, by_ops)
     k["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     return k
@@ -443,6 +631,8 @@ ENTRIES = {
     "spatial_match_stacked": ("spatial_match", "STACKED_LAUNCHES",
                               "STACKED_SHAPE"),
     "join_compact": ("join_compact", "LAUNCHES", "SHAPE"),
+    "flash_attention": ("flash_attention", "LAUNCHES", "SHAPE"),
+    "flash_decode": ("flash_decode", "LAUNCHES", "SHAPE"),
 }
 
 
@@ -835,6 +1025,247 @@ def every_plan(dev, cfg: dict) -> dict:
                 fused_launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving the LM
+# ---------------------------------------------------------------------------
+
+
+def logit_errors(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(relative L2 error, max abs error) of one token's logits, in f32."""
+    g, w = got.float(), want.float()
+    return (float(torch.linalg.vector_norm(g - w)
+                  / torch.linalg.vector_norm(w)),
+            float((g - w).abs().max()))
+
+
+def serve_phase(dev, cfg, shape: dict) -> dict:
+    """``launch/serve.py::serve`` on seeded weights: a short warm-up call
+    (lazy library initialisation), then the measured call with the launch
+    counts set to 0 just before it and read just after; then cached decode
+    against the teacher-forced forward for 3 tokens."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+    from repro_torch.models.model import ModelApi
+
+    batch, prompt, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+    cuda = dev.type == "cuda"
+    t = time.perf_counter()
+    params = ModelApi(cfg).init(torch.Generator(dev).manual_seed(SEED))
+    sync(dev)
+    init_s = time.perf_counter() - t
+    serve(cfg, batch, prompt, 3, device=dev, params=params)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    toks, t_pre, t_dec = serve(cfg, batch, prompt, gen, device=dev,
+                               params=params)
+    launches, shapes = launch_counts(), launch_shapes()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+    layers = cfg.superlayer_repeat
+    if cuda:
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=layers, flash_decode=layers * (gen - 1))
+        assert launches == want, launches
+    assert toks.shape == (batch, gen) and (toks >= 0).all() \
+        and (toks < cfg.vocab_size).all()
+    # cached decode == teacher-forced forward (the reference's
+    # test_decode_matches_forward), at full width
+    rng = np.random.default_rng(SEED + 5)
+    seq = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, prompt + 3))
+                       .astype(np.int32), device=dev)
+    full, _ = lm.forward(params, cfg, tokens=seq)
+    full = full[:, prompt - 1:, :cfg.vocab_size]
+    lg, caches, pos = lm.prefill(params, cfg, tokens=seq[:, :prompt],
+                                 max_len=prompt + 4)
+    errs = [logit_errors(lg, full[:, 0])]
+    for i in range(3):
+        lg, caches = lm.decode_step(params, cfg, caches, pos + i,
+                                    token=seq[:, prompt + i])
+        errs.append(logit_errors(lg, full[:, i + 1]))
+    del full, caches, params
+    assert all(r <= DECODE_REL_L2 and m <= DECODE_MAX_ABS for r, m in errs), \
+        errs
+    return dict(init_s=init_s, prefill_ms=1e3 * t_pre,
+                decode_ms_per_token=1e3 * t_dec / max(1, gen - 1),
+                decode_tokens_per_s=batch * (gen - 1) / t_dec,
+                tokens_per_s=batch * gen / (t_pre + t_dec), peak_gib=peak,
+                launches=launches, shapes=shapes, decode_vs_forward=errs,
+                sample=toks[0, :8].tolist(), **shape)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the enriched fused tick
+# ---------------------------------------------------------------------------
+
+
+class RecordingStage:
+    """An enrichment stage that runs another and keeps, per ``score`` call,
+    its scores and CUDA events around it (the engine calls it once per
+    scored join group, param group first)."""
+
+    def __init__(self, inner, dev):
+        self.inner, self.dev, self.calls = inner, dev, []
+
+    @property
+    def budget(self):
+        return self.inner.budget
+
+    @property
+    def identity(self) -> tuple:
+        return self.inner.identity
+
+    def score(self, payload_tokens, channel_ids, sids):
+        ev = None
+        if self.dev.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        scores = self.inner.score(payload_tokens, channel_ids, sids)
+        if ev is not None:
+            ev[1].record()
+        self.calls.append((int(payload_tokens.shape[0]), scores, ev))
+        return scores
+
+
+def check_rank_rule(reps, names, scores: torch.Tensor, budget: int) -> int:
+    """The rank contract on the host (numpy) for one scored join group:
+    each channel keeps the pairs of its top slots by (score desc, slot
+    asc), funded down to ``budget``, the first valid pairs of a partly
+    funded slot, and reports the rest as ranked. The kept mask comes from
+    ``enrich.rank_result`` replaying the recorded scores on the reports'
+    full join results; it must equal a numpy implementation of the
+    contract, every kept slot must score at least every fully dropped slot
+    (ties to the lower slot), and its ranked count must equal the engine's.
+    Returns the number of slots checked."""
+    from repro_torch.core import enrich
+    from repro_torch.core.plans import ChannelResult
+
+    class Replay:
+        identity = ("replay",)
+
+        def __init__(self):
+            self.budget = budget
+
+        def score(self, payload_tokens, channel_ids, sids):
+            return scores
+
+    results = [reps[n].result for n in names]
+    stacked = ChannelResult(*(torch.stack(f) for f in zip(*results)))
+    dev = stacked.pair_valid.device
+
+    class Fields:     # the replayed scores need no tokens
+        fields = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+        capacity = 1
+
+    pruned, ranked, _ = enrich.rank_result(
+        Replay(), Fields(), stacked, torch.arange(len(names), device=dev),
+        torch.zeros((len(names), 0), dtype=torch.int32, device=dev))
+    sc = scores.reshape(len(names), -1).cpu().numpy()
+    keep_all = pruned.pair_valid.cpu().numpy()
+    for i, name in enumerate(names):
+        valid = stacked.pair_valid[i].cpu().numpy()
+        s, keep = sc[i], keep_all[i]
+        vc = valid.sum(1)
+        live = np.flatnonzero(vc > 0)
+        order = live[np.lexsort((live, -s[live]))]
+        before = np.cumsum(vc[order]) - vc[order]
+        slot_keep = np.zeros(len(vc), np.int64)
+        slot_keep[order] = np.clip(budget - before, 0, vc[order])
+        want = valid & (np.cumsum(valid, 1) - 1 < slot_keep[:, None])
+        assert np.array_equal(keep, want), name
+        kept = np.flatnonzero(keep.any(1))
+        dropped = np.flatnonzero(valid.any(1) & ~keep.any(1))
+        if len(kept) and len(dropped):
+            low = s[kept].min()
+            assert low >= s[dropped].max(), (name, low, s[dropped].max())
+            tie = dropped[s[dropped] == low]
+            if len(tie):
+                assert kept[s[kept] == low].max() < tie.min(), name
+        rk = int(valid.sum() - keep.sum())
+        assert rk == int(ranked[i]) == reps[name].overflow.ranked_pairs, \
+            (name, rk, int(ranked[i]), reps[name].overflow.ranked_pairs)
+    return sc.size
+
+
+def enriched_phase(dev, cfg: dict, lm_cfg, budget: int) -> dict:
+    """Phase 3's engine and plans with ``LMScorer(lm_cfg, budget)``
+    attached; ``execute_all(None, deliver=True)`` + ``drain_spilled()``
+    each tick, the launch counts set to 0 just before the ticks."""
+    from repro_torch.core import enrich
+    from repro_torch.core import records as R
+    from repro_torch.core.predicates import compile_conditions
+    from repro_torch.data import synthetic as syn
+
+    cuda = dev.type == "cuda"
+    rng = np.random.default_rng(SEED + 1)
+    t_setup = time.perf_counter()
+    eng, specs, sub_counts, users = build_main_engine(dev, cfg, rng)
+    plans = fused_plans()
+    for name, plan in plans.items():
+        eng.set_plan(name, plan)
+    stage = RecordingStage(enrich.LMScorer(cfg=lm_cfg, budget=budget,
+                                           seed=SEED, device=dev), dev)
+    eng.set_enrichment(stage)
+    sync(dev)
+    setup_s = time.perf_counter() - t_setup
+    one = {s.name: compile_conditions([list(s.fixed_preds)]) for s in specs}
+    groups = [[s.name for s in specs if s.join == "param"],
+              [s.name for s in specs if s.join == "spatial"]]
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    sync(dev)
+    tick_ms, score_ms, slots, ranked, checked = [], [], [], [], 0
+    for tick in range(cfg["ticks"]):
+        f, loc = syn.tweet_arrays(rng, cfg["tick_rows"], t0=1 + tick * 100)
+        f = syn.drug_tweak(f, rng, 0.05)
+        before = launch_counts()
+        stage.calls.clear()
+        ts = time.perf_counter()
+        eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+        reps = eng.execute_all(None, deliver=True)
+        eng.drain_spilled()
+        sync(dev)
+        tick_ms.append(1e3 * (time.perf_counter() - ts))
+        got = since(before)
+        assert len(stage.calls) == len(groups), len(stage.calls)
+        if cuda:
+            want = dict.fromkeys(got, 0)
+            want.update(predicate_filter=1, spatial_match_stacked=1,
+                        join_compact=1, flash_attention=lm_cfg.superlayer_repeat
+                        * len(groups))
+            assert got == want, (tick, got)
+            score_ms.append([ev[0].elapsed_time(ev[1])
+                             for _, _, ev in stage.calls])
+        slots.append([n for n, _, _ in stage.calls])
+        for spec in specs:
+            rep = reps[spec.name]
+            check_conservation(rep)
+            o = rep.overflow
+            assert o.ranked_pairs == max(0, rep.num_results - budget), \
+                (spec.name, o.ranked_pairs, rep.num_results)
+            assert o.ranked_pairs <= o.dropped_pairs
+            assert o.ranked_sids <= o.dropped_sids
+            check_numpy(rep, spec, f, loc, one, sub_counts, users,
+                        tick in cfg["spatial_check_ticks"])
+        ranked.append({n: reps[n].overflow.ranked_pairs for n in reps})
+        if tick == cfg["rank_check_tick"]:
+            for names, (_, scores, _) in zip(groups, stage.calls):
+                checked += check_rank_rule(reps, names, scores, budget)
+        del reps
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+    launches, shapes = launch_counts(), launch_shapes()
+    rows = eng.size_host
+    del eng, stage
+    return dict(setup_s=setup_s, ticks=cfg["ticks"], tick_ms=tick_ms,
+                score_ms=score_ms, scored_slots=slots, ranked=ranked,
+                groups=groups, rank_checked_slots=checked, peak_gib=peak,
+                launches=launches, shapes=shapes, rows_ingested=rows,
+                budget=budget)
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -849,6 +1280,12 @@ COMPACT = dict(channels=6, subs=100_000, tick_rows=28672, ticks=3,
 PLANS = dict(dataset_capacity=1 << 18, index_capacity=1 << 16,
              max_window=1 << 14, max_candidates=1 << 14,
              drug_subs=50_000, users=10_000, ticks=2, tick_rows=8192)
+# the serve phase's shape, and the enriched tick: the main engine for four
+# ticks (the first one warms the libraries up), the rank rule checked on the
+# second
+SERVE = dict(batch=8, prompt_len=512, gen=32)
+ENRICH = dict(MAIN, ticks=4, spatial_check_ticks=(0,), rank_check_tick=1)
+ENRICH_BUDGET = 4096
 
 
 def main() -> int:
@@ -875,6 +1312,11 @@ def main() -> int:
     edge_parity(dev)
     print(f"[parity] exact on the edge cases in "
           f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    worst = flash_edge_parity(dev)
+    print(f"[parity] attention kernels within tolerance on the edge cases in "
+          f"{time.perf_counter() - t:.1f} s: largest errors "
+          f"{json.dumps(worst)}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     mp = main_path(dev, MAIN)
@@ -932,6 +1374,37 @@ def main() -> int:
           f"{json.dumps(ep['fused_launches'])}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
+    from repro_torch import configs
+    qwen = configs.get_config("qwen2-1.5b")
+    torch.cuda.empty_cache()
+    sp = serve_phase(dev, qwen, SERVE)
+    print(f"[serve] {qwen.name}: {qwen.superlayer_repeat} layers, d_model "
+          f"{qwen.d_model}, vocab {qwen.vocab_size}, {qwen.param_dtype}; "
+          f"weights drawn in {sp['init_s']:.1f} s; batch {sp['batch']}, "
+          f"prompt {sp['prompt_len']}, {sp['gen']} tokens: prefill "
+          f"{sp['prefill_ms']:.2f} ms, decode {sp['decode_ms_per_token']:.3f} "
+          f"ms/token ({sp['decode_tokens_per_s']:.1f} tokens/s decoding, "
+          f"{sp['tokens_per_s']:.1f} tokens/s with the prefill); "
+          f"max_memory_allocated {sp['peak_gib']:.2f} GiB")
+    print(f"[serve] launches {json.dumps(sp['launches'])}; largest shapes "
+          f"{json.dumps(sp['shapes'])}; sample {sp['sample']}; cached decode "
+          f"vs teacher-forced forward (relative L2, max abs) per token "
+          f"{json.dumps(sp['decode_vs_forward'])} (limits {DECODE_REL_L2}, "
+          f"{DECODE_MAX_ABS})")
+
+    torch.cuda.empty_cache()
+    en = enriched_phase(dev, ENRICH, qwen, ENRICH_BUDGET)
+    print(f"[enriched] LMScorer({qwen.name}, budget={en['budget']}) on the "
+          f"fused path; setup {en['setup_s']:.1f} s; {en['ticks']} ticks (ms) "
+          f"{json.dumps([round(t, 2) for t in en['tick_ms']])}")
+    print(f"[enriched] scored slots per group {json.dumps(en['groups'])} per "
+          f"tick {json.dumps(en['scored_slots'])}; score ms (CUDA events) "
+          f"{json.dumps([[round(x, 2) for x in t] for t in en['score_ms']])}")
+    print(f"[enriched] ranked pairs per tick {json.dumps(en['ranked'])}; rank "
+          f"rule held on {en['rank_checked_slots']} slots; launches "
+          f"{json.dumps(en['launches'])}; max_memory_allocated "
+          f"{en['peak_gib']:.2f} GiB")
+
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
     timed = [
@@ -945,39 +1418,56 @@ def main() -> int:
          case_spatial_match_stacked),
         ("join_compact", fp, "fused main path", "S={} maxT={}",
          functools.partial(case_join_compact, aggregated=True)),
+        ("flash_attention", sp, "serve phase (prefill)",
+         "B={} H={} KH={} S={} D={}", case_flash_attention),
+        ("flash_decode", sp, "serve phase (decode)",
+         "B={} H={} KH={} S={} D={}", case_flash_decode),
+        # the second rows of a kernel (kept under their first row below)
         ("join_compact", cjp, "compact phase (compact_pallas)",
          "S={} maxT={}", functools.partial(case_join_compact,
                                            aggregated=False)),
+        ("flash_attention", en, "enriched tick (LMScorer prefill)",
+         "B={} H={} KH={} S={} D={}", case_flash_attention),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
         "spatial_match": "src/repro/kernels/spatial_match/kernel.py:33",
-        "join_compact": "src/repro/kernels/join_compact/kernel.py:47"}
+        "join_compact": "src/repro/kernels/join_compact/kernel.py:47",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:70",
+        "flash_decode": "src/repro/kernels/flash_decode/kernel.py:70"}
     rng = np.random.default_rng(SEED + 7)
     measured = []
     for name, path, where, fmt, case in timed:
         shape = path["shapes"][name]
         k = measure(case(dev, rng, shape), fmt.format(*shape))
+        lib = ("" if k["library_ms"] is None
+               else f", library {k['library_ms']:.4f} ms")
         print(f"[kernel] {name} {k['shape']} ({where}): {k['ms']:.4f} ms "
               f"(graph of wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, "
-              f"plain {k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']}, {k['bound_bytes']} B), max_abs_err "
-              f"{k['max_abs_err']}")
+              f"plain {k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.4f} "
+              f"ms ({k['bound_by']}, {k['bound_bytes']} B, {k['bound_ops']} "
+              f"ops), max_abs_err {k['max_abs_err']} (tolerance "
+              f"{k['tolerance']} + {k['tolerance_rel']} x |plain|: "
+              f"{'within' if k['within_tolerance'] else 'OUTSIDE'})")
         module = ENTRIES[name][0]
         measured.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{module}.cu",
             "replaces": replaces[module], "launches": path["launches"][name],
             "launches_on": where, **{key: k[key] for key in (
-                "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                "bound_by")}, "library_ms": None, "shape": k["shape"]})
-    # join_compact's second row is its run at the compact phase's real grid
-    *entries, real_grid = measured
-    entries[-1]["real_grid"] = {key: real_grid[key] for key in (
-        "shape", "launches", "launches_on", "max_abs_err", "ms",
-        "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}
-    assert all(e["max_abs_err"] == 0 and e["launches"] > 0
+                "max_abs_err", "tolerance", "tolerance_rel",
+                "within_tolerance", "ms", "wrapper_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "shape")}})
+    assert all(e["within_tolerance"] and e["launches"] > 0
                for e in measured), measured
+    # the second rows: join_compact at the compact phase's real grid,
+    # flash_attention at the enriched tick's scorer batch
+    *entries, real_grid, scorer = measured
+    for entry, second, key in ((real_grid, "join_compact", "real_grid"),
+                               (scorer, "flash_attention", "enriched_tick")):
+        first = next(e for e in entries if e["name"] == second)
+        first[key] = {k: v for k, v in entry.items()
+                      if k not in ("name", "route", "source", "replaces")}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""PyTorch / CUDA port of the BAD data plane (the JAX package ``repro`` is the
-reference it is held against).
+"""PyTorch / CUDA port of the BAD data plane, its enrichment stage and the
+dense LMs behind it (the JAX package ``repro`` is the reference it is held
+against).
 
 Every entry point takes an explicit ``device`` that defaults to ``"cuda"``;
 see ``repro_torch.device.resolve_device`` for the rule. Kernels written by

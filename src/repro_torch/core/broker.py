@@ -68,8 +68,9 @@ class DeliveryStats:
     delivery buffer, recoverable or not). ``retried_*`` count retry-ring
     entries RE-presented this call (counted as spilled by an earlier call):
     produced == fresh + retried, so the identity telescopes across ticks.
-    The ranking counters belong to the enrichment stage, which is not
-    ported yet; they stay 0."""
+    ``ranked_*`` count the pairs (and their member sIDs) that the enrichment
+    stage (``core/enrich.py``) pruned past its budget before delivery: a
+    subset of ``dropped_*``, 0 without a stage."""
 
     delivered_pairs: int
     spilled_pairs: int

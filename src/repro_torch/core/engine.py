@@ -40,10 +40,16 @@ The stacked caches are rebuilt from the host on every epoch change, in the
 reference's layouts (slot / flat_slot / compacted); the reference patches
 them in place instead, so only ``maintenance.rebuilds`` differs.
 
+An enrichment stage (``core/enrich.py``, ``set_enrichment``) scores each
+join group's candidate slots between the join and ``deliver_all`` on fused
+runs with delivery and drops the lowest-scored pairs past its per-channel
+budget (counted in ``DeliveryStats.ranked_*``); its ``identity`` is stamped
+into every executed plan, so rings and stream buckets key on the scorer.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item porting it: spatial cohorts (``subscribe_users``, item 11), the
+item porting it: spatial cohorts (``subscribe_users``, item 11) and the
 dispatch/sync split (``dispatch``, ``dispatch_all`` and the resolved spill
-lane, item 13) and the enrichment stage (item 14).
+lane, item 13).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bad_index as bidx
+from repro_torch.core import enrich
 from repro_torch.core import plans
 from repro_torch.core import records as R
 from repro_torch.core import subscriptions as subs
@@ -423,6 +430,8 @@ class _PendingGroup:
     param_chs: List
     spatial_chs: List
     res: tuple                       # (res_p, res_s, del_p, del_s)
+    ranks: tuple                     # (rank_p, rank_s): (ranked pairs,
+                                     # ranked sIDs) or None without a stage
     p_layout: object
     s_layout: object
     deliver: bool
@@ -450,10 +459,8 @@ class BADEngine:
                  spill_capacity: int = 1 << 16,
                  incremental: bool = True,
                  ring_capacity: int = 1 << 12,
-                 enrichment=None,
+                 enrichment: Optional[enrich.EnrichmentStage] = None,
                  device: DeviceLike = "cuda"):
-        if enrichment is not None:
-            raise _not_ported("the enrichment stage", "item 14")
         self.device = resolve_device(device)
         self.schema = schema
         self.dataset = R.ActiveDataset.create(dataset_capacity, schema,
@@ -503,6 +510,10 @@ class BADEngine:
                                                      self.device)
         self.incremental = incremental
         self.maintenance = MaintenanceStats()
+        # post-join enrichment stage (core/enrich.py): scores the candidates
+        # of each fused join group before delivery; its identity is stamped
+        # into the executed plans, so rings and stream buckets key on it
+        self.enrichment = enrichment
 
     # ------------------------------------------------------------------
     # control plane
@@ -556,6 +567,21 @@ class BADEngine:
     def plan_assignment(self) -> Dict[str, plans.ChannelPlan]:
         """Every channel's effective plan (assigned or engine default)."""
         return {name: self.channel_plan(name) for name in self.channels}
+
+    def set_enrichment(self,
+                       stage: Optional[enrich.EnrichmentStage]) -> bool:
+        """Attach (or detach, with None) the post-join enrichment stage;
+        returns True when it changed. A host-side assignment, like
+        ``set_plan``: the next fused execution stamps the stage's
+        ``identity`` into every executed plan, so the previous plan-groups'
+        retry rings migrate through the flush path into the host
+        SpillQueue; nothing is lost or re-ranked across the switch."""
+        if stage is not None and not callable(getattr(stage, "score", None)):
+            raise TypeError(f"expected an EnrichmentStage, got {stage!r}")
+        if self.enrichment is stage:
+            return False
+        self.enrichment = stage
+        return True
 
     def subscribe(self, channel: str, param: int, broker: str = "BrokerA",
                   sid: Optional[int] = None) -> int:
@@ -874,7 +900,10 @@ class BADEngine:
         lane with the target index space the producing join used (False =
         flat rows, True = compacted group rows, "slot" / "flat_slot" =
         aggregator slot rows); ``epochs`` stamps pair entries with the
-        execution-time epochs instead of the live ones."""
+        execution-time epochs instead of the live ones. ``h`` may carry the
+        enrichment stage's per-channel ``ranked_pairs`` / ``ranked_sids``:
+        delivery saw the pruned result, so those pairs re-enter as counted
+        drops."""
         pack_d, pack_p = h["pack_delivered"], h["pack_produced"]
         fan_d, fan_p = h["fan_delivered"], h["fan_produced"]
         per_broker = h["per_broker"]
@@ -886,6 +915,8 @@ class BADEngine:
         svals = h["sid_values"][svalid]
         schan = h["sid_channels"][svalid]
         ring = "retried_pairs" in h
+        rank_p = h.get("ranked_pairs", np.zeros(len(chs), np.int32))
+        rank_s = h.get("ranked_sids", np.zeros(len(chs), np.int32))
         out: Dict[str, DeliveryStats] = {}
         for i, st in enumerate(chs):
             name = st.spec.name
@@ -897,13 +928,15 @@ class BADEngine:
             ov_p = int(pack_p[i] - pack_d[i])
             ov_s = int(fan_p[i] - fan_d[i])
             brokers = tuple(int(x) for x in per_broker[i])
+            rk_p, rk_s = int(rank_p[i]), int(rank_s[i])
             if not ring:
                 out[name] = DeliveryStats(
                     delivered_pairs=int(pack_d[i]), spilled_pairs=spilled_p,
-                    dropped_pairs=ov_p - spilled_p,
+                    dropped_pairs=ov_p - spilled_p + rk_p,
                     delivered_sids=int(fan_d[i]), spilled_sids=spilled_s,
-                    dropped_sids=ov_s - spilled_s,
-                    delivered_pairs_broker=brokers)
+                    dropped_sids=ov_s - spilled_s + rk_s,
+                    delivered_pairs_broker=brokers,
+                    ranked_pairs=rk_p, ranked_sids=rk_s)
                 continue
             # ring-resident entries count as spilled; overflow past the ring
             # that also missed the queue (or went epoch-stale in the ring)
@@ -915,13 +948,14 @@ class BADEngine:
             out[name] = DeliveryStats(
                 delivered_pairs=int(pack_d[i]),
                 spilled_pairs=ring_p + spilled_p,
-                dropped_pairs=stale_p + host_want_p - spilled_p,
+                dropped_pairs=stale_p + host_want_p - spilled_p + rk_p,
                 delivered_sids=int(fan_d[i]),
                 spilled_sids=ring_s + spilled_s,
-                dropped_sids=host_want_s - spilled_s,
+                dropped_sids=host_want_s - spilled_s + rk_s,
                 delivered_pairs_broker=brokers,
                 retried_pairs=int(h["retried_pairs"][i]),
-                retried_sids=int(h["retried_sids"][i]))
+                retried_sids=int(h["retried_sids"][i]),
+                ranked_pairs=rk_p, ranked_sids=rk_s)
         return out
 
     def execute_channel(self, channel: str,
@@ -1214,8 +1248,11 @@ class BADEngine:
         aware when a ring is given) on the same device, no host round trip
         in between. The compact backends compress the discovered candidates
         into a channel-major stream whose capacity ``_stream_caps`` chooses
-        first, so every run is accepted and a ring is presented once.
-        Returns (res_p, res_s, del_p, del_s)."""
+        first, so every run is accepted and a ring is presented once. With
+        the plan's ``scorer`` tag and an attached enrichment stage, each join
+        group's result is ranked (``enrich.rank_result``) before delivery;
+        the returned results stay the full join.
+        Returns ((res_p, res_s, del_p, del_s), (rank_p, rank_s))."""
         nb = self.brokers.num_brokers
         pushdown, aggregated = plan.param_pushdown, plan.aggregation
         use_pallas = plans.backend_family(plan.backend) == "pallas"
@@ -1231,7 +1268,11 @@ class BADEngine:
                                                    cand_s, max_cand)
         pw, mp = self.deliver_payload_words, self.max_deliver_pairs
         mn, sc = self.max_notify, self.max_spill
-        res_p = res_s = del_p = del_s = None
+        # the stage binds when the plan carries its tag; a tagged plan given
+        # to an engine with no stage attached runs unranked
+        stage = (self.enrichment
+                 if deliver and plan.scorer is not None else None)
+        res_p = res_s = del_p = del_s = rank_p = rank_s = None
         if param_chs:
             cand = cand_p
             up = p_in["up_masks"] if pushdown else None
@@ -1254,8 +1295,13 @@ class BADEngine:
                     ds, cand, p_in["targets"], p_in["param_field"],
                     p_in["payload"], nb, up, aggregated, p_in["domains"])
             if deliver:
+                res_del = res_p
+                if stage is not None:
+                    res_del, *rank_p = enrich.rank_result(
+                        stage, ds, res_p, p_in["rows"], p_in["sids"],
+                        counts=p_in["targets"].counts)
                 del_p = deliver_all(
-                    res_p, p_in["sids"], pw, mp, mn, sc,
+                    res_del, p_in["sids"], pw, mp, mn, sc,
                     target_brokers=p_in["targets"].brokers, num_brokers=nb,
                     counts=p_in["targets"].counts, ring=p_ring,
                     epochs=None if p_ring is None else p_in["epochs"])
@@ -1279,12 +1325,16 @@ class BADEngine:
                     ds, cand, s_in["locs"], s_in["brokers"], s_in["radius"],
                     s_in["payload"], nb, spatial_fn)
             if deliver:
+                res_del = res_s
+                if stage is not None:
+                    res_del, *rank_s = enrich.rank_result(
+                        stage, ds, res_s, s_in["rows"], s_in["sids"])
                 del_s = deliver_all(
-                    res_s, s_in["sids"], pw, mp, mn, sc,
+                    res_del, s_in["sids"], pw, mp, mn, sc,
                     target_brokers=s_in["brokers"], num_brokers=nb,
                     ring=s_ring,
                     epochs=None if s_ring is None else s_in["epochs"])
-        return res_p, res_s, del_p, del_s
+        return (res_p, res_s, del_p, del_s), (rank_p, rank_s)
 
     def _stream_caps(self, plan: plans.ChannelPlan,
                      param_chs: List[ChannelState],
@@ -1385,11 +1435,17 @@ class BADEngine:
             return []
         forced = request.forced_plan(
             "pallas" if self.use_pallas else "oracle")
+        # with a stage attached and delivery on, every executed plan carries
+        # the stage's identity, so rings and stream buckets key on it
+        tag = (self.enrichment.identity
+               if self.enrichment is not None and deliver else None)
         groups: Dict[plans.ChannelPlan, Tuple[List, List]] = {}
         for st in ordered:
             p = forced or (st.plan or self.default_plan())
             if forced is None and request.backend is not None:
                 p = dataclasses.replace(p, backend=request.backend)
+            if tag is not None:
+                p = dataclasses.replace(p, scorer=tag)
             g = groups.setdefault(p, ([], []))
             (g[0] if st.spec.join == "param" else g[1]).append(st)
         use_ring = deliver and self.ring_capacity > 0
@@ -1467,8 +1523,8 @@ class BADEngine:
         if timed:
             self._sync()
         t0 = time.perf_counter()
-        res = self._run_group(plan, param_chs, spatial_chs, max_cand,
-                              deliver, p_in, s_in, p_ring, s_ring)
+        res, ranks = self._run_group(plan, param_chs, spatial_chs, max_cand,
+                                     deliver, p_in, s_in, p_ring, s_ring)
         wall = 0.0
         if timed:
             self._sync()
@@ -1483,7 +1539,8 @@ class BADEngine:
                     s_names, plan.aggregation, del_s.ring)
         return _PendingGroup(
             plan=plan, param_chs=param_chs, spatial_chs=spatial_chs,
-            res=res, p_layout=p_layout, s_layout=plan.aggregation,
+            res=res, ranks=ranks, p_layout=p_layout,
+            s_layout=plan.aggregation,
             deliver=deliver, wall=wall, t0=t0,
             p_epochs=[st.epoch for st in param_chs],
             s_epochs=[st.epoch for st in spatial_chs])
@@ -1496,9 +1553,11 @@ class BADEngine:
         (``report.result`` holds per-channel views)."""
         res_p, res_s, del_p, del_s = g.res
         wall = g.wall
-        for chs, res, dlv, layout, epochs in (
-                (g.param_chs, res_p, del_p, g.p_layout, g.p_epochs),
-                (g.spatial_chs, res_s, del_s, g.s_layout, g.s_epochs)):
+        for chs, res, dlv, rank, layout, epochs in (
+                (g.param_chs, res_p, del_p, g.ranks[0], g.p_layout,
+                 g.p_epochs),
+                (g.spatial_chs, res_s, del_s, g.ranks[1], g.s_layout,
+                 g.s_epochs)):
             if not chs:
                 continue
             named = {"num_results": res.num_results,
@@ -1507,6 +1566,8 @@ class BADEngine:
                      "broker_bytes": res.broker_bytes}
             if g.deliver:
                 named.update(_delivery_tensors(dlv))
+            if rank is not None:
+                named.update(ranked_pairs=rank[0], ranked_sids=rank[1])
             h = _host_arrays(named)
             if not wall:
                 wall = time.perf_counter() - g.t0
@@ -1728,8 +1789,6 @@ class BADEngine:
     def dispatch(self, *args, **kwargs):
         raise _not_ported("the dispatch/sync split (dispatch)", "item 13")
 
-    def set_enrichment(self, stage) -> bool:
-        raise _not_ported("the enrichment stage", "item 14")
 
 
 def _delivery_tensors(d: FusedDelivery) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,8 @@ reference's run — after a ring wraparound, for instance. The subscription
 control plane is rebuilt by replaying the same control-plane calls on the
 port's engine; ``load_engine_state`` then installs the device state and the
 few host marks that go with it (``now``, ``size_host``, each channel's last
-execution point).
+execution point). ``params_from_numpy`` carries an LM's initialised
+parameters across the same way.
 """
 from __future__ import annotations
 
@@ -76,3 +77,35 @@ def load_engine_state(engine, dataset: R.ActiveDataset,
         st = engine.channels[name]
         st.last_exec_ts, st.last_exec_size, st.executions = \
             int(ts), int(size), int(executions)
+
+
+def params_from_numpy(cfg, tree, device: DeviceLike = "cuda"):
+    """The reference's LM parameter tree, as numpy arrays, as the port's
+    parameters on ``device``: the superlayers, stacked on axis 0 in the
+    reference (``models/lm.py``), become the port's list with one tree per
+    depth; ``embed``, ``final_norm`` and ``head`` keep their names. Dtypes
+    carry over (bfloat16 included: numpy holds it as ml_dtypes' bfloat16,
+    which is moved bit for bit). ``jax.random`` cannot be reproduced in
+    torch, so the parity tests carry the reference's initialised parameters
+    across with this."""
+    dev = resolve_device(device)
+
+    def put(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.view(np.int16), device=dev).view(
+                torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    def tmap(fn, node):
+        if isinstance(node, dict):
+            return {k: tmap(fn, v) for k, v in node.items()}
+        return fn(node)
+
+    if "shared" in tree:
+        raise NotImplementedError("shared_attn parameters are not ported to "
+                                  "repro_torch yet (ROADMAP Queue 1, item 17)")
+    out = {k: put(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [tmap(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
+                     for i in range(cfg.superlayer_repeat)]
+    return out

@@ -92,6 +92,12 @@ class ChannelPlan:
     aggregation: bool = False
     param_pushdown: bool = False
     backend: str = "oracle"
+    # the attached EnrichmentStage's ``identity`` (core/enrich.py), stamped
+    # by the engine at execution so every plan-keyed state (stream buckets,
+    # retry rings) keys on the scorer too: an attach, detach or swap
+    # re-rings like a plan switch. Never assigned to a channel and never
+    # persisted (``to_dict`` omits it).
+    scorer: Optional[tuple] = None
 
     def __post_init__(self):
         if self.scan_mode not in SCAN_MODES:

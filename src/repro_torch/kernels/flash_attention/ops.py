@@ -1,0 +1,79 @@
+"""Public wrapper for the flash_attention kernel: ``models/attention.py
+_sdpa`` calls it.
+
+``flash_attention`` picks the version by the tensor's device: a CPU tensor
+runs the plain version in ``ref.py``, a CUDA tensor launches
+``csrc/flash_attention.cu`` (or raises). The kernel masks the ragged end of
+S itself, so nothing is padded; the wrapper still refuses a non-causal S
+that is not a multiple of the reference's tile (``tq``, ``tk`` default to
+min(256, S)), so both packages accept the same inputs.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import ref
+
+DEFAULT_TQ = 256
+DEFAULT_TK = 256
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# launches of the CUDA kernel in this process (never the plain version), and
+# the largest (B, H, KH, S, D) it launched
+LAUNCHES = 0
+SHAPE = None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: Optional[float] = None,
+                    tq: Optional[int] = None,
+                    tk: Optional[int] = None) -> torch.Tensor:
+    """q (B, H, S, D), k/v (B, KH, S, D) -> (B, H, S, D) in q's dtype."""
+    s, d = q.shape[2], q.shape[3]
+    scale = scale if scale is not None else d ** -0.5
+    tq = tq or min(DEFAULT_TQ, s)
+    tk = tk or min(DEFAULT_TK, s)
+    if s % max(tq, tk) and not causal:
+        raise ValueError("non-causal flash_attention requires tile-aligned S")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return _launch(q, k, v, causal, float(scale))
+
+
+def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    global LAUNCHES, SHAPE
+    from repro_torch.kernels import _build
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q and k must be 4-d, got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    if q.dtype not in DTYPES or d not in HEAD_DIMS or kh == 0 or h % kh:
+        raise ValueError(f"flash_attention: q must be float32 or bfloat16 "
+                         f"with D in {HEAD_DIMS} and H a multiple of KH, got "
+                         f"{q.dtype} {tuple(q.shape)}, KH={kh}")
+    for name, t, shape in (("q", q, (b, h, s, d)), ("k", k, (b, kh, s, d)),
+                           ("v", v, (b, kh, s, d))):
+        if (t.device != q.device or t.dtype != q.dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"flash_attention: {name} must be a contiguous "
+                             f"{q.dtype} {shape} tensor on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kh, s, d, DTYPES[q.dtype], scale, int(bool(causal)),
+            ctypes.c_void_p(stream))
+    _build.check(code, "flash_attention")
+    LAUNCHES += 1
+    SHAPE = _build.larger(SHAPE, (b, h, kh, s, d))
+    return out

@@ -1,0 +1,117 @@
+"""Port parity for flash_attention: the port's plain version
+(``repro_torch/kernels/flash_attention/ref.py``) and its wrapper on CPU
+tensors against the reference's oracle and its TPU kernel run in interpret
+mode, on the sweep shapes of ``tests/test_kernels.py`` and more. Tolerances
+are the reference kernel test's: 3e-5 in float32, 2e-2 in bfloat16 (the
+plain versions round the softmax weights to bf16 before the PV product, the
+kernels do not). The CUDA kernel itself is held against the plain version
+on the card (``tests/test_torch_kernels_gpu.py``, ``chip_smoke.py``)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention import ops as j_ops  # noqa: E402
+from repro.kernels.flash_attention import ref as j_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as t_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as t_ref  # noqa: E402
+
+TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+SWEEP = [(1, 2, 1, 128, 32), (2, 4, 2, 256, 64), (1, 8, 8, 128, 128),
+         (1, 6, 2, 384, 64)]
+
+
+def _inputs(rng, b, h, kh, s, d, dtype):
+    arrays = [rng.normal(size=shape).astype(np.float32)
+              for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def _f32(x):
+    if hasattr(x, "detach"):
+        return x.detach().float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kh,s,d", SWEEP)
+def test_sweep_plain_and_wrapper(rng, b, h, kh, s, d, dtype):
+    """Causal sweep: the port's plain version against the reference's
+    oracle (same arithmetic: bf16 weights in the PV product), and the
+    port's wrapper on the CPU against the reference's TPU kernel in
+    interpret mode (tiles of 128, as the reference's test)."""
+    jx, tx = _inputs(rng, b, h, kh, s, d, dtype)
+    got = t_ref.flash_attention(*tx, causal=True)
+    assert got.dtype == tx[0].dtype and got.shape == (b, h, s, d)
+    np.testing.assert_allclose(_f32(got), _f32(j_ref.flash_attention(
+        *jx, causal=True)), atol=TOL[dtype])
+    np.testing.assert_allclose(
+        _f32(t_ops.flash_attention(*tx, causal=True, tq=128, tk=128)),
+        _f32(j_ops.flash_attention(*jx, causal=True, tq=128, tk=128)),
+        atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [256, 10, 1])
+def test_noncausal(rng, s):
+    """Full attention on tile-aligned S (S <= 256 is one tile)."""
+    jx, tx = _inputs(rng, 1, 2, 2, s, 64, "float32")
+    want = j_ops.flash_attention(*jx, causal=False)
+    np.testing.assert_allclose(
+        _f32(t_ops.flash_attention(*tx, causal=False)), _f32(want),
+        atol=3e-5)
+    np.testing.assert_allclose(
+        _f32(t_ref.flash_attention(*tx, causal=False)),
+        _f32(j_ref.flash_attention(*jx, causal=False)), atol=3e-5)
+
+
+@pytest.mark.parametrize("s", [200, 300, 10])
+def test_ragged_s_padding(rng, s):
+    """Causal S off the tile: the reference pads to the tile and slices;
+    the port's wrapper pads nothing (its kernel masks the ragged end). The
+    scorer's S = 10 record fields is one of the cases."""
+    jx, tx = _inputs(rng, 2, 6, 2, s, 16, "float32")
+    got = t_ops.flash_attention(*tx, causal=True, tq=128, tk=128)
+    want = j_ops.flash_attention(*jx, causal=True, tq=128, tk=128)
+    assert got.shape == (2, 6, s, 16)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=3e-5)
+    assert np.isfinite(_f32(got)).all()
+
+
+def test_noncausal_off_tile_refused_like_the_reference(rng):
+    jx, tx = _inputs(rng, 1, 2, 1, 300, 32, "float32")
+    with pytest.raises(ValueError, match="tile-aligned"):
+        j_ops.flash_attention(*jx, causal=False)
+    with pytest.raises(ValueError, match="tile-aligned"):
+        t_ops.flash_attention(*tx, causal=False)
+
+
+def test_first_row_sees_one_key_and_no_row_is_nan(rng):
+    """Row 0 of a causal attention has exactly one live key, so its output
+    is v[0] of its KV head; with keys of very large norm every other row is
+    a near one-hot softmax. No row is NaN in either package. (A row with no
+    live key at all cannot be built through either package's entry points:
+    causal row i always sees key 0, a full row sees all S keys; the CUDA
+    kernel's l == 0 -> 0 rule is the TPU kernel's, and flash_decode's
+    kv_len = 0 case in tests/test_torch_flash_decode.py is the reachable
+    fully masked row.)"""
+    jx, tx = _inputs(rng, 1, 4, 2, 64, 32, "float32")
+    big = [t * 30.0 for t in tx]
+    got = t_ops.flash_attention(*big, causal=True)
+    want = j_ops.flash_attention(*(jnp.asarray(t.numpy()) for t in big),
+                                 causal=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=3e-5 * 30)
+    np.testing.assert_allclose(_f32(got[:, :, 0]),
+                               _f32(torch.repeat_interleave(big[2], 2, 1)
+                                    [:, :, 0]), atol=3e-5 * 30)
+    assert np.isfinite(_f32(got)).all()
+
+
+def test_wrapper_counts_no_launch_on_the_cpu(rng):
+    before = t_ops.LAUNCHES
+    _, tx = _inputs(rng, 1, 2, 1, 16, 16, "float32")
+    t_ops.flash_attention(*tx)
+    assert t_ops.LAUNCHES == before and t_ops.SHAPE is None

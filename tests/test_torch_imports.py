@@ -13,6 +13,7 @@ pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "enriched_pipeline_torch.py",
     ROOT / "tools" / "profile_main_path.py"]
 
 
@@ -46,7 +47,9 @@ def test_engine_import_leaves_jax_unloaded():
     code = ("import sys; import repro_torch.core.engine, "
             "repro_torch.kernels.predicate_filter.ops, "
             "repro_torch.kernels.spatial_match.ops, repro_torch.core.interop, "
-            "repro_torch.kernels.join_compact.ops; "
+            "repro_torch.kernels.join_compact.ops, repro_torch.core.enrich, "
+            "repro_torch.launch.serve, repro_torch.kernels.flash_decode.ops, "
+            "repro_torch.kernels.flash_attention.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -12,6 +12,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.predicates import Predicate, compile_conditions  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.flash_decode import ops as fd_ops  # noqa: E402
+from repro_torch.kernels.flash_decode import ref as fd_ref  # noqa: E402
 from repro_torch.kernels.join_compact import ops as jc_ops  # noqa: E402
 from repro_torch.kernels.join_compact import ref as jc_ref  # noqa: E402
 from repro_torch.kernels.predicate_filter import ops as pf_ops  # noqa: E402
@@ -147,3 +151,87 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         jc_ops.join_pairs(i32, i32[:, 0].contiguous(), i32, i32,
                           i32[:, 0].contiguous(), i32[:, 0].contiguous(), 2,
                           False)
+
+
+# flash kernels: float32 and bfloat16 against the plain versions, per
+# element |kernel - plain| <= atol + rtol |plain|: the reference kernel
+# test's 3e-5 (f32) and 2e-2 (bf16, where the plain version rounds the
+# softmax weights to bf16 and the kernel does not), and in bf16 one more
+# rounding step of the output (2^-7 |plain|), as chip_smoke.py holds them
+FLASH_TOL = {torch.float32: (3e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -7)}
+
+
+def _within(got, want, dtype) -> bool:
+    atol, rtol = FLASH_TOL[dtype]
+    got, want = got.double(), want.double()
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _normal(rng, shape, dtype, device):
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                           device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(rng, cuda_device, dtype):
+    before = fa_ops.LAUNCHES
+    cases = [(1, 2, 1, 1, 16, True), (2, 6, 1, 10, 32, True),
+             (2, 12, 2, 10, 128, False), (1, 6, 6, 33, 64, True),
+             (2, 12, 2, 300, 128, True), (1, 4, 2, 256, 64, False),
+             (3, 8, 2, 97, 128, True)]
+    for b, h, kh, s, d, causal in cases:
+        q = _normal(rng, (b, h, s, d), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, s, d), dtype, cuda_device)
+                for _ in range(2))
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        want = fa_ref.flash_attention(q, k, v, causal=causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _within(got, want, dtype), ((b, h, kh, s, d, causal), float(
+            (got.float() - want.float()).abs().max()))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_matches_plain(rng, cuda_device, dtype):
+    """Partials and output against the plain version: kv_len 0, 1, ragged
+    and the full cache; G = 1 and 6; a cache longer than one split."""
+    before = fd_ops.LAUNCHES
+    cases = [(2, 1, 1, 64, 16), (4, 12, 2, 544, 128), (3, 6, 6, 100, 32),
+             (1, 6, 1, 5000, 64)]
+    for b, h, kh, s, d in cases:
+        q = _normal(rng, (b, h, d), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, s, d), dtype, cuda_device)
+                for _ in range(2))
+        lens = [s, 0, 1, int(rng.integers(2, s))][:b]
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+        got = fd_ops.decode_attention_partial(q, k, v, kv_len)
+        want = fd_ref.decode_attention_partial(q, k, v, kv_len)
+        for g, w, name in zip(got, want, ("acc", "m", "l")):
+            assert g.dtype == torch.float32 and g.shape == w.shape, name
+            assert torch.equal(torch.isneginf(g), torch.isneginf(w)), name
+            fin = torch.isfinite(w)
+            assert torch.isfinite(g[fin]).all(), name
+            err = float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+            assert err <= 2e-5 + 1e-5 * float(w[fin].abs().max()), (name, err)
+        out = fd_ops.decode_attention(q, k, v, kv_len)
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        assert not out[kv_len == 0].float().any()            # kv_len 0
+        assert _within(out, fd_ref.decode_attention(q, k, v, kv_len), dtype)
+    torch.cuda.synchronize()
+    assert fd_ops.LAUNCHES == before + 2 * len(cases)
+    assert fd_ops.SHAPE is not None
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros((1, 2, 8, 48), device=cuda_device)       # D = 48
+    with pytest.raises(ValueError, match="D in"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), dtype=torch.float16, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 32), device=cuda_device)
+    k = torch.zeros((1, 1, 8, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="kv_len"):
+        fd_ops.decode_attention(q, k, k, torch.zeros((1,), dtype=torch.int64,
+                                                     device=cuda_device))

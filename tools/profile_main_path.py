@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where a main-path tick of the PyTorch port spends its time, on one card.
 
-    python3 tools/profile_main_path.py [--ticks 6] [--path per_channel|fused]
+    python3 tools/profile_main_path.py [--ticks 6] [--path per_channel|fused|serve]
 
 Runs one of ``chip_smoke.py``'s main paths (same engine, channels and
 subscription counts): the per-channel ``execute_channel`` tick or the fused
-``execute_all`` + ``drain_spilled`` tick, for a few ticks under
-``torch.profiler``, and prints the operators
+``execute_all`` + ``drain_spilled`` tick, for a few ticks, or its serve
+phase (``launch/serve.py::serve``, qwen2-1.5b at full width, at
+``chip_smoke.SERVE``'s shape), under ``torch.profiler``, and prints the
+operators
 that take the most device time and the most host time, and the device's
 busy share of the profiled wall time (the sum of kernel times over the wall
 clock; overlapping kernels would count twice, and the port launches on one
@@ -33,35 +35,43 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=6)
-    ap.add_argument("--path", choices=("per_channel", "fused"),
+    ap.add_argument("--path", choices=("per_channel", "fused", "serve"),
                     default="per_channel")
     args = ap.parse_args()
-    run = (chip_smoke.main_path if args.path == "per_channel"
-           else chip_smoke.fused_path)
     if not torch.cuda.is_available():
         print("profile_main_path: CUDA is not available", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     print(chip_smoke.card_line())
-    cfg = dict(chip_smoke.MAIN, ticks=args.ticks, spatial_check_ticks=())
-    run(dev, dict(cfg, ticks=2))                           # warm-up run
+    if args.path == "serve":
+        run, what = serve_runner(dev), "one serve call"
+    else:
+        path = (chip_smoke.main_path if args.path == "per_channel"
+                else chip_smoke.fused_path)
+        cfg = dict(chip_smoke.MAIN, ticks=args.ticks, spatial_check_ticks=())
+        path(dev, dict(cfg, ticks=2))                       # warm-up run
+        what = f"{args.ticks} {args.path} ticks"
+
+        def run() -> str:
+            mp = path(dev, cfg)
+            return (f"timed ticks {mp['tick_ms_mean'] * args.ticks:.1f} ms; "
+                    f"per tick (ms): ingest {mp['ingest_ms_mean']:.2f}, "
+                    f"execute {json.dumps(mp['exec_ms_mean'])}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mp = run(dev, cfg)
+        summary = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     # kernel and copy rows only: operator rows repeat their kernels' time
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA)
-    print(f"profiled {args.ticks} {args.path} ticks: wall {wall * 1e3:.1f} ms "
-          f"(timed ticks {mp['tick_ms_mean'] * args.ticks:.1f} ms), "
-          f"device busy {device_us / 1e3:.1f} ms = "
-          f"{100 * device_us / 1e6 / wall:.1f}% of wall")
-    print(f"per tick (ms): ingest {mp['ingest_ms_mean']:.2f}, execute "
-          f"{json.dumps(mp['exec_ms_mean'])}")
+    print(f"profiled {what}: wall {wall * 1e3:.1f} ms, device busy "
+          f"{device_us / 1e3:.1f} ms = {100 * device_us / 1e6 / wall:.1f}% "
+          f"of wall")
+    print(summary)
     print(events.table(sort_by="self_device_time_total", row_limit=20,
                        max_name_column_width=60))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15,
@@ -70,6 +80,26 @@ def main() -> int:
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, f"{args.path}_trace.json"))
     return 0
+
+
+def serve_runner(dev):
+    """One ``serve`` call at ``chip_smoke.SERVE``'s shape on qwen2-1.5b's
+    seeded weights, after a warm-up call; returns its timing line."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import ModelApi
+    cfg = configs.get_config("qwen2-1.5b")
+    params = ModelApi(cfg).init(torch.Generator(dev).manual_seed(0))
+    b, p, g = (chip_smoke.SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    serve(cfg, b, p, 3, device=dev, params=params)          # warm-up call
+
+    def run() -> str:
+        _, t_pre, t_dec = serve(cfg, b, p, g, device=dev, params=params)
+        return (f"batch {b}, prompt {p}, {g} tokens: prefill "
+                f"{t_pre * 1e3:.2f} ms, decode {t_dec / (g - 1) * 1e3:.3f} "
+                f"ms/token")
+
+    return run
 
 
 if __name__ == "__main__":
