@@ -7,9 +7,10 @@ Needs one CUDA card, nvcc and the repository's ``src/`` beside this file; it
 exits non-zero, printing no result, without them. Phases:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, started together; the ``-Xptxas -v`` lines are printed) and hold
-   every kernel entry against its plain PyTorch version on the card,
-   exactly, on edge cases.
+   source, started together; the ``-Xptxas -v`` lines are printed, and the
+   HGMMA count of each bf16 ``flash_attention`` instantiation from
+   ``cuobjdump -sass``) and hold every kernel entry against its plain
+   PyTorch version on the card, exactly, on edge cases.
 2. The per-channel main path at a size users would call real: one engine,
    three channels (TweetsAboutDrugs with 1,000,000 subscriptions,
    MostThreateningTweets with 200,000, TweetsAboutCrime3 over 10,000 users),
@@ -60,6 +61,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +90,9 @@ FLASH_TOL = {torch.float32: (3e-5, 0.0), torch.bfloat16: (2e-2, 2.0 ** -7)}
 # RoPE angle or mask gives errors of order 1
 DECODE_REL_L2 = 0.05
 DECODE_MAX_ABS = 0.5
+# what the attention edge cases write around the kernel's output (exact in
+# bf16): it must survive every launch
+SENTINEL = -12288.0
 
 
 def card_line() -> str:
@@ -96,6 +101,26 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_counts(library) -> dict:
+    """HGMMA instructions in each bf16 ``flash_attention`` instantiation of
+    the built library, by (head dim, key tile), as ``cuobjdump -sass``
+    (beside nvcc) shows them."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"bf16_attention_kernelILi(\d+)ELi(\d+)E", line)
+            cur = f"D={m[1]} keys={m[2]}" if m else None
+            if cur:
+                counts[cur] = 0
+        elif cur and "HGMMA" in line:
+            counts[cur] += 1
+    return counts
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -276,16 +301,37 @@ def edge_parity(dev) -> None:
     torch.cuda.synchronize()
 
 
+def attention_into_sentinel(q, k, v, causal: bool) -> torch.Tensor:
+    """``flash_attention`` of (q, k, v), written by the kernel into a view of
+    a buffer whose 64 rows on each side hold ``SENTINEL``; asserts they still
+    do (a tile stored past its slab's end would overwrite them). On the CPU
+    the wrapper's plain version, for rehearsal."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    if q.device.type == "cpu":
+        return fa_ops.flash_attention(q, k, v, causal=causal)
+    pad, n = 64 * q.shape[-1], q.numel()
+    buf = torch.full((n + 2 * pad,), SENTINEL, dtype=q.dtype, device=q.device)
+    out = buf[pad:pad + n].view(q.shape)
+    fa_ops._launch(q, k, v, causal, q.shape[-1] ** -0.5, out=out)
+    assert bool((buf[:pad] == SENTINEL).all()
+                and (buf[pad + n:] == SENTINEL).all()), (
+        "flash_attention stored outside its output", tuple(q.shape),
+        tuple(k.shape))
+    return out
+
+
 def flash_edge_parity(dev) -> dict:
     """Both attention kernels against their plain versions on their edge
     cases, within ``FLASH_TOL``: ``flash_attention`` with S = 1, the
     scorer's S = 10, S off every tile (33, 97, 300), a tile-aligned S, each
-    head dim (16 to 128), G = 1 and 6, causal and full, float32 and bf16;
+    head dim (16 to 128), G = 1 and 6, causal and full, float32 and bf16,
+    and the bf16 kernel's packed (G * S, D) slabs ending inside a 64-row
+    tile (G * S = 66, 60, 40), spanning several (S = 64 full, S = 512),
+    G = 1, each written between sentinels (``attention_into_sentinel``);
     ``flash_decode`` with kv_len 0, 1, ragged and the full cache, G = 1 and
     6, a cache longer than one split, both types (partials: m exactly
     -inf where no key is live, l = 0 and acc = 0 there; elsewhere within
     2e-5 + 1e-5 relative). Returns the largest error per kernel and type."""
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
@@ -304,10 +350,12 @@ def flash_edge_parity(dev) -> dict:
                 (3, 12, 2, 10, 128, True), (2, 12, 2, 10, 128, False),
                 (2, 6, 6, 33, 32, True), (1, 6, 1, 97, 64, True),
                 (1, 12, 2, 300, 128, True), (2, 4, 2, 256, 64, False),
-                (1, 2, 1, 128, 16, False)):
+                (1, 2, 1, 128, 16, False), (2, 12, 2, 11, 128, True),
+                (1, 6, 1, 64, 128, False), (3, 12, 2, 10, 16, True),
+                (1, 12, 2, 512, 128, True), (2, 8, 8, 40, 64, True)):
             q = normal((b, h, s, d), dtype)
             k, v = normal((b, kh, s, d), dtype), normal((b, kh, s, d), dtype)
-            got = fa_ops.flash_attention(q, k, v, causal=causal).float()
+            got = attention_into_sentinel(q, k, v, causal).float()
             want = fa_ref.flash_attention(q, k, v, causal=causal).float()
             err = max_abs_err(got, want)
             assert tol_excess(got, want, atol, rtol) <= 0, (
@@ -1307,6 +1355,11 @@ def main() -> int:
         if "ptxas" in line:
             print(f"[build] {line.strip()}")
     _build.library()
+    hgmma = tensor_core_counts(path)
+    print(f"[build] HGMMA instructions in the bf16 flash_attention kernels "
+          f"(cuobjdump -sass): {json.dumps(hgmma)}")
+    # both products of every bf16 instantiation on the tensor cores
+    assert len(hgmma) == 8 and min(hgmma.values()) >= 2, hgmma
 
     t = time.perf_counter()
     edge_parity(dev)

@@ -3,10 +3,13 @@ _sdpa`` calls it.
 
 ``flash_attention`` picks the version by the tensor's device: a CPU tensor
 runs the plain version in ``ref.py``, a CUDA tensor launches
-``csrc/flash_attention.cu`` (or raises). The kernel masks the ragged end of
-S itself, so nothing is padded; the wrapper still refuses a non-causal S
-that is not a multiple of the reference's tile (``tq``, ``tk`` default to
-min(256, S)), so both packages accept the same inputs.
+``csrc/flash_attention.cu`` (or raises): in bf16 a Hopper kernel on the
+tensor cores fed by TMA, in float32 a CUDA-core kernel. The kernel masks
+the ragged end of S itself, so nothing is padded; the wrapper still refuses
+a non-causal S that is not a multiple of the reference's tile (``tq``,
+``tk`` default to min(256, S)), so both packages accept the same inputs.
+``check_inputs`` holds what the kernel takes, 16-byte-aligned tensors
+included.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ DEFAULT_TQ = 256
 DEFAULT_TK = 256
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ALIGN = 16          # bytes: TMA's rule for a tensor's base address
 
 # launches of the CUDA kernel in this process (never the plain version), and
 # the largest (B, H, KH, S, D) it launched
@@ -44,9 +48,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, causal, float(scale))
 
 
-def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    global LAUNCHES, SHAPE
-    from repro_torch.kernels import _build
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """Raise ValueError unless the kernel takes (q, k, v); return (B, H, KH,
+    S, D). It takes float32 or bfloat16, D in ``HEAD_DIMS``, H a multiple of
+    KH, contiguous tensors of one dtype on one device, each starting on a
+    16-byte boundary (the bf16 kernel's TMA loads need it; float32 keeps the
+    same rule)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -63,7 +70,27 @@ def _launch(q, k, v, causal: bool, scale: float) -> torch.Tensor:
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"{q.dtype} {shape} tensor on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    out = torch.empty_like(q)
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"{ALIGN}-byte boundary, got address "
+                             f"{t.data_ptr():#x}")
+    return b, h, kh, s, d
+
+
+def _launch(q, k, v, causal: bool, scale: float,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel into ``out`` (a new tensor unless given: the
+    card-only tests pass a view whose neighbours hold a sentinel)."""
+    global LAUNCHES, SHAPE
+    from repro_torch.kernels import _build
+    b, h, kh, s, d = check_inputs(q, k, v)
+    if out is None:
+        out = torch.empty_like(q)
+    elif (out.device != q.device or out.dtype != q.dtype
+          or out.shape != q.shape or not out.is_contiguous()
+          or out.data_ptr() % ALIGN):
+        raise ValueError(f"flash_attention: out must be a contiguous, "
+                         f"{ALIGN}-byte-aligned tensor like q")
     if out.numel() == 0:
         return out
     lib = _build.library()

@@ -115,3 +115,48 @@ def test_wrapper_counts_no_launch_on_the_cpu(rng):
     _, tx = _inputs(rng, 1, 2, 1, 16, 16, "float32")
     t_ops.flash_attention(*tx)
     assert t_ops.LAUNCHES == before and t_ops.SHAPE is None
+
+
+def _refused(case):
+    """(q, k, v) that the kernel does not take, and the message's key."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    good = lambda *s, dt=bf16: torch.zeros(s, dtype=dt)  # noqa: E731
+    if case == "head_dim":
+        return good(1, 2, 8, 48), good(1, 1, 8, 48), good(1, 1, 8, 48), "D in"
+    if case == "float16":
+        x = good(1, 2, 8, 32, dt=torch.float16)
+        return x, x[:, :1], x[:, :1], "bfloat16"
+    if case == "heads":
+        return good(1, 3, 8, 32), good(1, 2, 8, 32), good(1, 2, 8, 32), \
+            "multiple of KH"
+    if case == "strided":
+        k = good(1, 1, 32, 8).transpose(2, 3)
+        return good(1, 2, 8, 32), k, good(1, 1, 8, 32), "contiguous"
+    if case == "dtypes":
+        return good(1, 2, 8, 32), good(1, 1, 8, 32, dt=f32), \
+            good(1, 1, 8, 32), "contiguous"
+    flat = torch.zeros(1 + 2 * 8 * 32, dtype=bf16)
+    q = flat[1:].view(1, 2, 8, 32)              # 2 bytes past an aligned start
+    return q, good(1, 1, 8, 32), good(1, 1, 8, 32), "16-byte"
+
+
+@pytest.mark.parametrize("case", ["head_dim", "float16", "heads", "strided",
+                                  "dtypes", "misaligned"])
+def test_kernel_checks_refuse_what_the_kernel_does_not_take(case):
+    """``check_inputs`` is what the wrapper runs before a launch on the card;
+    it runs on any device, so its refusals are held here."""
+    q, k, v, match = _refused(case)
+    if case == "misaligned":
+        assert q.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match=match):
+        t_ops.check_inputs(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_checks_take_the_served_shapes(dtype):
+    """The scorer's and the serve prefill's shapes (cut in batch) pass."""
+    for b, h, kh, s, d in ((4, 12, 2, 10, 128), (1, 12, 2, 512, 128),
+                           (2, 8, 8, 40, 64), (3, 12, 2, 10, 16)):
+        q = torch.zeros((b, h, s, d), dtype=dtype)
+        k = torch.zeros((b, kh, s, d), dtype=dtype)
+        assert t_ops.check_inputs(q, k, k.clone()) == (b, h, kh, s, d)

@@ -172,13 +172,23 @@ def _normal(rng, shape, dtype, device):
                            device=device).to(dtype)
 
 
+# the bf16 kernel packs the G query heads of a KV head into one (G * S, D)
+# slab cut in 64-row tiles: slabs that end inside a tile (G * S = 66, 60,
+# 40), a full slab of 6 x 64 rows, tiles that lie inside one head (S = 512)
+# and G = 1
+PACKED_CASES = [(2, 12, 2, 11, 128, True), (1, 6, 1, 64, 128, False),
+                (3, 12, 2, 10, 16, True), (1, 12, 2, 512, 128, True),
+                (2, 8, 8, 40, 64, True)]
+SENTINEL = -12288.0     # exact in bf16
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(rng, cuda_device, dtype):
     before = fa_ops.LAUNCHES
     cases = [(1, 2, 1, 1, 16, True), (2, 6, 1, 10, 32, True),
              (2, 12, 2, 10, 128, False), (1, 6, 6, 33, 64, True),
              (2, 12, 2, 300, 128, True), (1, 4, 2, 256, 64, False),
-             (3, 8, 2, 97, 128, True)]
+             (3, 8, 2, 97, 128, True), *PACKED_CASES]
     for b, h, kh, s, d, causal in cases:
         q = _normal(rng, (b, h, s, d), dtype, cuda_device)
         k, v = (_normal(rng, (b, kh, s, d), dtype, cuda_device)
@@ -190,6 +200,29 @@ def test_flash_attention_kernel_matches_plain(rng, cuda_device, dtype):
             (got.float() - want.float()).abs().max()))
     torch.cuda.synchronize()
     assert fa_ops.LAUNCHES == before + len(cases)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_stores_stay_in_the_output(rng, cuda_device,
+                                                          dtype):
+    """The output is a view into a buffer whose 64 rows on each side hold a
+    sentinel: a tile stored past its slab's end (or before the first) would
+    overwrite it. The values inside match the plain version."""
+    for b, h, kh, s, d, causal in PACKED_CASES:
+        q = _normal(rng, (b, h, s, d), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, s, d), dtype, cuda_device)
+                for _ in range(2))
+        pad, n = 64 * d, q.numel()
+        buf = torch.full((n + 2 * pad,), SENTINEL, dtype=dtype,
+                         device=cuda_device)
+        out = buf[pad:pad + n].view(q.shape)
+        fa_ops._launch(q, k, v, causal, d ** -0.5, out=out)
+        torch.cuda.synchronize()
+        assert bool((buf[:pad] == SENTINEL).all()
+                    and (buf[pad + n:] == SENTINEL).all()), (b, h, kh, s, d)
+        want = fa_ref.flash_attention(q, k, v, causal=causal)
+        assert _within(out, want, dtype), ((b, h, kh, s, d, causal), float(
+            (out.float() - want.float()).abs().max()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -230,6 +263,11 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 2, 8, 32), dtype=torch.float16, device=cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):
         fa_ops.flash_attention(q, q, q)
+    flat = torch.zeros(1 + 2 * 8 * 32, dtype=torch.bfloat16,
+                       device=cuda_device)
+    q = flat[1:].view(1, 2, 8, 32)                           # 2-byte offset
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
     q = torch.zeros((1, 2, 32), device=cuda_device)
     k = torch.zeros((1, 1, 8, 32), device=cuda_device)
     with pytest.raises(ValueError, match="kv_len"):

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where a main-path tick of the PyTorch port spends its time, on one card.
 
-    python3 tools/profile_main_path.py [--ticks 6] [--path per_channel|fused|serve]
+    python3 tools/profile_main_path.py [--ticks 6]
+        [--path per_channel|fused|serve|enriched]
 
 Runs one of ``chip_smoke.py``'s main paths (same engine, channels and
 subscription counts): the per-channel ``execute_channel`` tick or the fused
-``execute_all`` + ``drain_spilled`` tick, for a few ticks, or its serve
+``execute_all`` + ``drain_spilled`` tick, for a few ticks; its serve
 phase (``launch/serve.py::serve``, qwen2-1.5b at full width, at
-``chip_smoke.SERVE``'s shape), under ``torch.profiler``, and prints the
-operators
+``chip_smoke.SERVE``'s shape); or one ``LMScorer.score`` call of its
+enriched tick (qwen2-1.5b at full width on one join group's 16,384 slots
+of 10 record fields), under ``torch.profiler``, and prints the operators
 that take the most device time and the most host time, and the device's
 busy share of the profiled wall time (the sum of kernel times over the wall
 clock; overlapping kernels would count twice, and the port launches on one
@@ -35,8 +37,8 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=6)
-    ap.add_argument("--path", choices=("per_channel", "fused", "serve"),
-                    default="per_channel")
+    ap.add_argument("--path", choices=("per_channel", "fused", "serve",
+                                       "enriched"), default="per_channel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_main_path: CUDA is not available", file=sys.stderr)
@@ -45,6 +47,8 @@ def main() -> int:
     print(chip_smoke.card_line())
     if args.path == "serve":
         run, what = serve_runner(dev), "one serve call"
+    elif args.path == "enriched":
+        run, what = score_runner(dev), "one LMScorer.score call"
     else:
         path = (chip_smoke.main_path if args.path == "per_channel"
                 else chip_smoke.fused_path)
@@ -72,6 +76,13 @@ def main() -> int:
           f"{device_us / 1e3:.1f} ms = {100 * device_us / 1e6 / wall:.1f}% "
           f"of wall")
     print(summary)
+    print("device time by kernel (ms, share of the device total, launches):")
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    for e in kernels[:20]:
+        print(f"  {e.self_device_time_total / 1e3:10.2f} "
+              f"{100 * e.self_device_time_total / max(device_us, 1):5.1f}% "
+              f"x{e.count:<6d} {e.key[:110]}")
     print(events.table(sort_by="self_device_time_total", row_limit=20,
                        max_name_column_width=60))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15,
@@ -98,6 +109,41 @@ def serve_runner(dev):
         return (f"batch {b}, prompt {p}, {g} tokens: prefill "
                 f"{t_pre * 1e3:.2f} ms, decode {t_dec / (g - 1) * 1e3:.3f} "
                 f"ms/token")
+
+    return run
+
+
+def score_runner(dev):
+    """One ``LMScorer.score`` call as the enriched tick makes it: qwen2-1.5b
+    at full width (seeded weights, budget ``chip_smoke.ENRICH_BUDGET``) over
+    one join group's ``max_candidates`` slots, each prompt a synthetic
+    tweet's 10 record fields; after a warm-up call. Returns its timing
+    line."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import enrich
+    from repro_torch.data import synthetic as syn
+    cfg = configs.get_config("qwen2-1.5b")
+    stage = enrich.LMScorer(cfg=cfg, budget=chip_smoke.ENRICH_BUDGET,
+                            seed=chip_smoke.SEED, device=dev)
+    slots = chip_smoke.MAIN["max_candidates"]
+    fields, _ = syn.tweet_arrays(np.random.default_rng(chip_smoke.SEED),
+                                 slots, t0=1)
+    toks = torch.as_tensor(fields, device=dev)
+    ids = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    stage.score(toks, ids, ids)                            # warm-up call
+
+    def run() -> str:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = stage.score(toks, ids, ids)
+        end.record()
+        torch.cuda.synchronize()
+        assert scores.shape == (slots,) and bool(torch.isfinite(scores).all())
+        return (f"{slots} slots x {toks.shape[1]} tokens: score "
+                f"{start.elapsed_time(end):.1f} ms (CUDA events)")
 
     return run
 
