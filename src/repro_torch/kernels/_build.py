@@ -29,8 +29,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
-# nvcc's output of the build that produced the loaded library (ptxas -v lines
-# included); empty when the library was already on disk
+# nvcc's output of the build that produced the library (ptxas -v lines
+# included), kept beside it as <library>.log
 build_log: str = ""
 
 
@@ -74,7 +74,9 @@ def build() -> Path:
     """Compile csrc/*.cu into the hashed shared library (no-op if present)."""
     global build_log
     out = library_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,6 +87,7 @@ def build() -> Path:
         staged = Path(tmp) / out.name
         log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(staged),
                           *map(str, objs)]])
+        log_path.write_text(log)
         os.replace(staged, out)     # atomic: a half-written .so is never seen
     build_log = log
     return out
@@ -108,9 +111,10 @@ def library() -> ctypes.CDLL:
         lib.join_compact_launch.restype = i
         lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f, i, p]
         lib.flash_attention_launch.restype = i
-        lib.flash_decode_launch.argtypes = ([p] * 10 + [i] * 6
-                                            + [f, i, i, p])
+        lib.flash_decode_launch.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
         lib.flash_decode_launch.restype = i
+        lib.flash_decode_clusters.argtypes = [i, i, i, i, p]
+        lib.flash_decode_clusters.restype = i
         _lib = lib
     return _lib
 

@@ -3,7 +3,9 @@
 Handles the cached conditionsList canonicalization and picks the version by
 the tensor's device: a CPU tensor runs the plain version in ``ref.py``, a
 CUDA tensor launches ``csrc/predicate_filter.cu`` (or raises). The kernel
-masks the ragged tail itself, so no padding happens here.
+masks the ragged tail itself, so no padding happens here; it reads the
+records with 16-byte loads, so ``_check`` refuses a base off a 16-byte
+boundary.
 ``predicate_filter_rows`` is the stacked (C, N, F) -> (C, N) form of the
 fused discovery, with its own entry in the same source and its own launch
 count.
@@ -18,6 +20,8 @@ import torch
 
 from repro_torch.core.predicates import CompiledConditions
 from repro_torch.kernels.predicate_filter import ref
+
+ALIGN = 16          # bytes: the kernel's loads of the records
 
 # launches of the CUDA kernels in this process (never the plain versions):
 # the (N, F) -> (N, C) entry and the stacked rows entry; beside each, the
@@ -82,12 +86,18 @@ def predicate_filter_rows(fields: torch.Tensor,
 
 
 def _check(name: str, fields, tables, shapes) -> None:
+    """What the kernel takes: contiguous int32 records and tables on one
+    device, the records starting on a 16-byte boundary (the kernel reads
+    them with 16-byte loads)."""
     for tname, t, shape in zip(("fields", "lo", "hi", "neq"), tables, shapes):
         if (t.device != fields.device or t.dtype != torch.int32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name}: {tname} must be a contiguous int32 "
                              f"{shape} tensor on {fields.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if fields.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: fields must start on a {ALIGN}-byte "
+                         f"boundary, got address {fields.data_ptr():#x}")
 
 
 def _launch_rows(fields, lo, hi, neq) -> torch.Tensor:

@@ -123,9 +123,119 @@ def test_bf16_cache(rng):
         j_ref.decode_attention(*jx), np.float32), atol=2e-2)
 
 
+def _key_shares(length, n_split):
+    """The [begin, end) keys each rank of a cluster takes of a row with
+    ``length`` live keys, by the rule of ``key_share`` in
+    ``csrc/flash_decode.cu``: whole tiles, the same number to each rank but
+    the last busy one. The card-only tests hold the kernel's outputs on
+    ragged rows against the plain version, which is what shows the kernel
+    keeps to it."""
+    per = -(-(-(-length // t_ops.TILE)) // n_split)
+    return [(min(r * per * t_ops.TILE, length),
+             min((r + 1) * per * t_ops.TILE, length))
+            for r in range(n_split)]
+
+
 @pytest.mark.parametrize("b,kh,s", [(1, 1, 1), (8, 2, 544), (1, 8, 32768),
                                     (64, 8, 100), (2, 2, 33)])
 def test_splits_cover_the_cache_in_whole_tiles(b, kh, s):
-    split, n = t_ops.splits(b, kh, s)
-    assert split % t_ops.TILE == 0 and split * n >= s > split * (n - 1)
-    assert b * kh * n <= max(b * kh, 2 * t_ops.SMS + b * kh)
+    """The cluster rule at several SM counts: a size in ``CLUSTERS`` up to
+    the card's largest, B * KH * size within two blocks an SM, at least two
+    tiles a block, and no larger size would keep all three; each row's live
+    keys divided among the ranks in whole tiles, in order."""
+    tiles = -(-s // t_ops.TILE)
+    per_sm, min_tiles = t_ops.PER_SM, t_ops.MIN_TILES
+    assert (per_sm, min_tiles) == (2, 2)
+    for sms in (132, 114, 78, 16):
+        for most in (8, 16):
+            n = t_ops.cluster_size(b, kh, s, sms, most)
+            assert n in t_ops.CLUSTERS and n <= most
+            assert n == 1 or (b * kh * n <= per_sm * sms
+                              and min_tiles * n <= tiles)
+            assert (2 * n > most or b * kh * 2 * n > per_sm * sms
+                    or min_tiles * 2 * n > tiles)
+            for length in sorted({0, 1, s // 2, max(0, s - 1), s}):
+                shares = _key_shares(length, n)
+                assert len(shares) == n and shares[0][0] == 0
+                assert shares[-1][1] == length
+                for (b0, e0), (b1, _) in zip(shares, shares[1:]):
+                    assert e0 == b1                       # contiguous
+                for lo, hi in shares:
+                    assert lo <= hi
+                    assert lo % t_ops.TILE == 0 or lo == hi == length
+                    assert hi % t_ops.TILE == 0 or hi == length
+                busy = [hi - lo for lo, hi in shares if hi > lo]
+                assert len(set(busy[:-1])) <= 1           # equal but the last
+
+
+def test_cluster_size_at_the_serve_shape():
+    """qwen2-1.5b decoding at batch 8 on 132 SMs: 16 clusters of 8 blocks
+    at the serve cache (17 tiles, two or three a block), of 16 at a
+    32,768-key cache (256 blocks, about two an SM); a batch that fills the
+    SMs twice alone takes no split, and a two-tile cache none either."""
+    assert t_ops.cluster_size(8, 2, 544, 132) == 8
+    assert t_ops.cluster_size(8, 2, 32768, 132) == 16
+    assert t_ops.cluster_size(8, 2, 32768, 132, most=8) == 8
+    assert t_ops.cluster_size(1, 1, 32768, 132) == 16
+    assert t_ops.cluster_size(66, 2, 544, 132) == 2
+    assert t_ops.cluster_size(132, 2, 544, 132) == 1
+    assert t_ops.cluster_size(4, 2, 40, 132) == 1          # two tiles only
+    assert t_ops.cluster_size(4, 2, 128, 132) == 2
+
+
+def test_key_shares_leave_late_ranks_empty_on_a_short_row():
+    """A row of 33 live keys over 8 ranks: two tiles for ranks 0 and 1,
+    nothing for the other six (the kernel writes their empty partial)."""
+    assert _key_shares(33, 8) == [(0, 32), (32, 33)] + [(33, 33)] * 6
+    assert _key_shares(0, 4) == [(0, 0)] * 4
+
+
+def _cpu_inputs(b=2, h=4, kh=2, s=64, d=32, dtype=torch.bfloat16):
+    return (torch.zeros((b, h, d), dtype=dtype),
+            torch.zeros((b, kh, s, d), dtype=dtype),
+            torch.zeros((b, kh, s, d), dtype=dtype),
+            torch.full((b,), s, dtype=torch.int32))
+
+
+def test_check_inputs_takes_what_the_kernel_takes():
+    assert t_ops.check_inputs(*_cpu_inputs()) == (2, 4, 2, 64, 32)
+    q, k, v, kv_len = _cpu_inputs(h=32, kh=1, d=128, dtype=torch.float32)
+    assert t_ops.check_inputs(q, k, v, kv_len) == (2, 32, 1, 64, 128)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("d48", "D in"), ("g64", "H / KH"), ("f16", "bfloat16"),
+    ("kv_int64", "kv_len"), ("v_dtype", "v must"), ("k_strided", "k must"),
+    ("q_2d", "3-d")])
+def test_check_inputs_refuses_shapes_it_does_not_take(case, match):
+    q, k, v, kv_len = _cpu_inputs()
+    if case == "d48":
+        q, k, v, kv_len = _cpu_inputs(d=48)
+    elif case == "g64":
+        q, k, v, kv_len = _cpu_inputs(h=64, kh=1)
+    elif case == "f16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif case == "kv_int64":
+        kv_len = kv_len.long()
+    elif case == "v_dtype":
+        v = v.float()
+    elif case == "k_strided":
+        k = torch.zeros((2, 2, 64, 64), dtype=torch.bfloat16)[..., :32]
+    elif case == "q_2d":
+        q = q[0]
+    with pytest.raises(ValueError, match=match):
+        t_ops.check_inputs(q, k, v, kv_len)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_check_inputs_refuses_a_misaligned_view(which):
+    """The bulk copies need k and v on a 16-byte boundary (q keeps the same
+    rule): a contiguous view 2 bytes into a buffer is refused."""
+    q, k, v, kv_len = _cpu_inputs()
+    t = {"q": q, "k": k, "v": v}[which]
+    flat = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    shifted = flat[1:1 + t.numel()].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    args = {"q": q, "k": k, "v": v, which: shifted}
+    with pytest.raises(ValueError, match="16-byte"):
+        t_ops.check_inputs(args["q"], args["k"], args["v"], kv_len)

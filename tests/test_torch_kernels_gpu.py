@@ -6,6 +6,9 @@ the port is installed:
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -28,12 +31,13 @@ pytestmark = pytest.mark.gpu
 OPS = ["==", "!=", "<", "<=", ">", ">="]
 
 
-def _conds(rng, nchan):
+def _conds(rng, nchan, nfields=10):
     chans = []
     for _ in range(nchan):
         seen, preds = {}, []
         for _ in range(int(rng.integers(1, 4))):
-            f, op, v = (int(rng.integers(0, 10)), OPS[int(rng.integers(0, 6))],
+            f, op, v = (int(rng.integers(0, nfields)),
+                        OPS[int(rng.integers(0, 6))],
                         int(rng.integers(-40, 40)))
             if op == "!=" and seen.setdefault(f, v) != v:
                 continue
@@ -273,3 +277,244 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="kv_len"):
         fd_ops.decode_attention(q, k, k, torch.zeros((1,), dtype=torch.int64,
                                                      device=cuda_device))
+
+
+# the clustered flash_decode kernel: partials within 2e-5 + 1e-5 x
+# max|plain| (m exactly -inf, l = acc = 0 where no key is live), outputs
+# within FLASH_TOL (0 where no key is live)
+def _decode_close(got, want, normalized, dtype):
+    if normalized:
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        assert _within(got, want, dtype), float(
+            (got.float() - want.float()).abs().max())
+        return
+    empty = torch.isneginf(want[1])
+    assert torch.isneginf(got[1][empty]).all()
+    assert not got[2][empty].any() and not got[0][empty].any()
+    for g, w, name in zip(got, want, ("acc", "m", "l")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w)), name
+        fin = torch.isfinite(w)
+        err = float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+        assert err <= 2e-5 + 1e-5 * float(w[fin].abs().max()), (name, err)
+
+
+def _decode_case(rng, device, dtype, b, h, kh, s, d, lens):
+    q = _normal(rng, (b, h, d), dtype, device)
+    k, v = (_normal(rng, (b, kh, s, d), dtype, device) for _ in range(2))
+    kv_len = torch.tensor([lens[i % len(lens)] for i in range(b)],
+                          dtype=torch.int32, device=device)
+    return q, k, v, kv_len
+
+
+def _both_entries(q, k, v, kv_len, dtype):
+    for normalized in (True, False):
+        got = (fd_ops.decode_attention(q, k, v, kv_len) if normalized
+               else fd_ops.decode_attention_partial(q, k, v, kv_len))
+        want = (fd_ref.decode_attention(q, k, v, kv_len) if normalized
+                else fd_ref.decode_attention_partial(q, k, v, kv_len))
+        _decode_close(got, want, normalized, dtype)
+
+
+def _cluster(device, q, k):
+    """The blocks a cluster that a call on (q, k) takes on ``device``."""
+    from repro_torch.kernels import _build
+    b, h, d = q.shape
+    return fd_ops.plan(_build.library(), device, b, h, k.shape[1],
+                       k.shape[2], d, q.dtype)
+
+
+def _largest_cluster(device):
+    q = torch.zeros((1, 1, 128), dtype=torch.bfloat16, device=device)
+    return _cluster(device, q, torch.zeros((1, 1, 1024, 128),
+                                           dtype=torch.bfloat16,
+                                           device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_each_cluster_size(rng, cuda_device, dtype):
+    """B * KH chosen from the SM count so that the wrapper picks each
+    cluster size the card takes (16 only where it does)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    most = _largest_cluster(cuda_device)
+    for n in [c for c in fd_ops.CLUSTERS if c <= most]:
+        b, s = max(1, sms // n), 64 * n
+        want_n = fd_ops.cluster_size(b, 1, s, sms, most)
+        q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, b, 2, 1, s,
+                                       128, [s, 0, 33, s - 1])
+        _both_entries(q, k, v, kv_len, dtype)
+        got_n = _cluster(cuda_device, q, k)
+        assert got_n == want_n == n, (n, want_n, got_n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_ragged_batch_leaves_ranks_empty(rng, cuda_device,
+                                                     dtype):
+    """Rows of 1, 31, 33 and 0 live keys beside a full one: most ranks of
+    their clusters get no key and write the empty partial."""
+    q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, 8, 12, 2, 1024,
+                                   128, [1024, 1, 31, 33, 0, 700, 64, 1023])
+    _both_entries(q, k, v, kv_len, dtype)
+    assert _cluster(cuda_device, q, k) >= 4
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 6, 8, 32])
+def test_flash_decode_groups_and_head_dims(rng, cuda_device, g):
+    """Each group size the block layouts differ by (each compiled bound of
+    heads a warp, one or two warp groups, one to four warps a group) at
+    every head dim, both types."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in fd_ops.HEAD_DIMS:
+            q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, 3, g, 1,
+                                           200, d, [200, 0, 77])
+            _both_entries(q, k, v, kv_len, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_stores_stay_in_the_output(rng, cuda_device, dtype):
+    """Both entries write into a view whose 64 rows on each side hold a
+    sentinel; the values inside match the plain version."""
+    for b, h, kh, s, d in ((2, 12, 2, 544, 128), (3, 6, 1, 100, 32),
+                           (4, 2, 2, 33, 16)):
+        q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, b, h, kh, s,
+                                       d, [s, 0, 1, s // 2])
+        for normalized in (True, False):
+            out_dtype = dtype if normalized else torch.float32
+            pad, n = 64 * d, q.numel()
+            buf = torch.full((n + 2 * pad,), SENTINEL, dtype=out_dtype,
+                             device=cuda_device)
+            out = buf[pad:pad + n].view(q.shape)
+            got = fd_ops._launch(q, k, v, kv_len, d ** -0.5, normalized,
+                                 out=out)
+            torch.cuda.synchronize()
+            assert bool((buf[:pad] == SENTINEL).all()
+                        and (buf[pad + n:] == SENTINEL).all())
+            want = (fd_ref.decode_attention(q, k, v, kv_len) if normalized
+                    else fd_ref.decode_attention_partial(q, k, v, kv_len))
+            _decode_close(got, want, normalized, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_replays_in_a_cuda_graph(rng, cuda_device, dtype):
+    """One call of each entry captured in a CUDA graph, replayed after new
+    values are written into q, the cache and kv_len (the wrapper reads
+    kv_len on the device only)."""
+    q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, 4, 12, 2, 544,
+                                   128, [544, 0, 100, 1])
+    fd_ops.decode_attention(q, k, v, kv_len)
+    fd_ops.decode_attention_partial(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd_ops.decode_attention(q, k, v, kv_len)
+        part = fd_ops.decode_attention_partial(q, k, v, kv_len)
+    for t in (q, k, v):
+        t.copy_(_normal(rng, tuple(t.shape), dtype, cuda_device))
+    kv_len.copy_(torch.tensor([7, 541, 0, 260], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    _decode_close(out, fd_ref.decode_attention(q, k, v, kv_len), True, dtype)
+    _decode_close(part, fd_ref.decode_attention_partial(q, k, v, kv_len),
+                  False, dtype)
+
+
+def test_flash_decode_refuses_a_misaligned_view(rng, cuda_device):
+    q, k, v, kv_len = _decode_case(rng, cuda_device, torch.bfloat16, 2, 4, 2,
+                                   64, 32, [64, 3])
+    flat = torch.zeros(k.numel() + 8, dtype=k.dtype, device=cuda_device)
+    shifted = flat[1:1 + k.numel()].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd_ops.decode_attention(q, shifted, v, kv_len)
+    with pytest.raises(ValueError, match="16-byte"):
+        fd_ops.decode_attention_partial(q, k, shifted, kv_len)
+
+
+def test_flash_decode_enqueues_one_kernel_a_call(cuda_device):
+    """One call of each entry at the serve shape enqueues one flash_decode
+    kernel and nothing else: ``chip_smoke.py``'s check, which brackets the
+    call with two marker kernels and profiles a window again where the
+    profiler shows no marker, as it can for a process's first."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    seen = chip_smoke.one_kernel_per_decode_call(cuda_device)
+    assert sorted(seen) == ["decode_attention", "decode_attention_partial"]
+
+
+# the vectorized predicate_filter: bit-exact at N off every 16-byte vector
+# and 256-row block, F = 1 and 10, both entries
+
+
+@pytest.mark.parametrize("f", [1, 10])
+def test_predicate_filter_vector_and_block_edges(rng, cuda_device, f):
+    for c in (1, 3, 6):
+        conds = _conds(rng, c, f)
+        lo, hi, neq = (torch.as_tensor(a, device=cuda_device)
+                       for a in pf_ops.canonical_arrays(conds, f))
+        for n in (1, 3, 255, 257, 65537):
+            x = torch.as_tensor(rng.integers(-40, 40, (n, f))
+                                .astype(np.int32), device=cuda_device)
+            got = pf_ops.predicate_filter(x, conds)
+            assert got.shape == (n, c)
+            assert torch.equal(got, pf_ref.predicate_filter(x, lo, hi, neq))
+
+
+@pytest.mark.parametrize("c", [1, 6])
+def test_predicate_filter_rows_vector_and_block_edges(rng, cuda_device, c):
+    for f in (1, 10):
+        conds = _conds(rng, c, f)
+        lo, hi, neq = (torch.as_tensor(a, device=cuda_device)
+                       for a in pf_ops.canonical_arrays(conds, f))
+        for n in (1, 3, 255, 257, 65537):
+            x = torch.as_tensor(rng.integers(-40, 40, (c, n, f))
+                                .astype(np.int32), device=cuda_device)
+            got = pf_ops.predicate_filter_rows(x, conds)
+            assert torch.equal(got, pf_ref.predicate_filter_rows(x, lo, hi,
+                                                                 neq))
+
+
+def test_predicate_filter_rows_int32_extremes(cuda_device):
+    x = torch.tensor([[[-2**31, 2**31 - 1, 0, 5, 0, 0, 0, 0, 0, 0]]] * 3,
+                     dtype=torch.int32, device=cuda_device).view(3, 1, 10)
+    conds = compile_conditions([[Predicate.parse(0, "<=", -2**31 + 1)],
+                                [Predicate.parse(1, ">=", 2**31 - 1)],
+                                [Predicate.parse(3, "==", 5),
+                                 Predicate.parse(3, "!=", 4)]])
+    assert pf_ops.predicate_filter_rows(x, conds).tolist() == [[True]] * 3
+    conds = compile_conditions([[Predicate.parse(0, ">", -2**31)],
+                                [Predicate.parse(1, "<", 2**31 - 1)],
+                                [Predicate.parse(3, "!=", 5)]])
+    assert pf_ops.predicate_filter_rows(x, conds).tolist() == [[False]] * 3
+
+
+def test_predicate_filter_refuses_a_misaligned_view(cuda_device):
+    shifted = torch.zeros(257 * 10 + 1, dtype=torch.int32,
+                          device=cuda_device)[1:].view(257, 10)
+    conds = _conds(np.random.default_rng(0), 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        pf_ops.predicate_filter(shifted, conds)
+    with pytest.raises(ValueError, match="16-byte"):
+        pf_ops.predicate_filter_rows(shifted[None], _conds(
+            np.random.default_rng(0), 1))
+
+
+@pytest.mark.parametrize("c,f", [(12, 10), (2, 40), (128, 16), (300, 10)])
+def test_predicate_filter_wide_tables(rng, cuda_device, c, f):
+    """More than 8 channels, or more than 32 fields: the tables are
+    compacted one channel a thread instead of one channel a warp. More
+    channels than a block's 48 KB of shared memory holds beside its rows
+    (the reference kernel's own budget, C = 128 at F = 16, and 300 at the
+    schema's F = 10): both entries take the channels in chunks, and the
+    rows form at N = 1 and 3 puts hundreds of channels in one block."""
+    conds = _conds(rng, c, f)
+    lo, hi, neq = (torch.as_tensor(a, device=cuda_device)
+                   for a in pf_ops.canonical_arrays(conds, f))
+    for n in (1, 3, 257, 4099):
+        x = torch.as_tensor(rng.integers(-40, 40, (n, f)).astype(np.int32),
+                            device=cuda_device)
+        assert torch.equal(pf_ops.predicate_filter(x, conds),
+                           pf_ref.predicate_filter(x, lo, hi, neq))
+        xr = torch.as_tensor(rng.integers(-40, 40, (c, n, f))
+                             .astype(np.int32), device=cuda_device)
+        assert torch.equal(pf_ops.predicate_filter_rows(xr, conds),
+                           pf_ref.predicate_filter_rows(xr, lo, hi, neq))
+

@@ -104,3 +104,49 @@ def test_paper_channels_on_tweets(rng):
     tc = TP.compile_conditions([list(s.fixed_preds) for s in tspecs])
     assert_same(jpf.predicate_filter(jnp.asarray(f), jc),
                 tpf.predicate_filter(torch.as_tensor(f), tc), "bitmap")
+
+
+def _tables(c, f):
+    return tuple(torch.zeros((c, f), dtype=torch.int32) for _ in range(3))
+
+
+def test_kernel_check_takes_aligned_records():
+    """``ops._check`` holds what the vectorized kernel takes; it reads no
+    device, so it runs here on CPU tensors."""
+    x = torch.zeros((257, 10), dtype=torch.int32)
+    assert x.data_ptr() % tpf.ALIGN == 0
+    tpf._check("predicate_filter", x, (x, *_tables(3, 10)),
+               ((257, 10), (3, 10), (3, 10), (3, 10)))
+    xr = torch.zeros((6, 257, 10), dtype=torch.int32)
+    tpf._check("predicate_filter_rows", xr, (xr, *_tables(6, 10)),
+               ((6, 257, 10), (6, 10), (6, 10), (6, 10)))
+
+
+@pytest.mark.parametrize("offset_words", [1, 2, 3])
+def test_kernel_check_refuses_a_misaligned_view(offset_words):
+    """The kernel reads the records with 16-byte loads: a contiguous view
+    4, 8 or 12 bytes into a buffer is refused."""
+    flat = torch.zeros(257 * 10 + 4, dtype=torch.int32)
+    x = flat[offset_words:offset_words + 2570].view(257, 10)
+    assert x.is_contiguous() and x.data_ptr() % tpf.ALIGN
+    with pytest.raises(ValueError, match="16-byte"):
+        tpf._check("predicate_filter", x, (x, *_tables(3, 10)),
+                   ((257, 10), (3, 10), (3, 10), (3, 10)))
+
+
+@pytest.mark.parametrize("case", ["int64", "strided", "table_shape",
+                                  "table_dtype"])
+def test_kernel_check_refuses_what_the_kernel_does_not_take(case):
+    x = torch.zeros((257, 10), dtype=torch.int32)
+    tables = list(_tables(3, 10))
+    if case == "int64":
+        x = x.long()
+    elif case == "strided":
+        x = torch.zeros((257, 20), dtype=torch.int32)[:, ::2]
+    elif case == "table_shape":
+        tables[0] = torch.zeros((3, 9), dtype=torch.int32)
+    elif case == "table_dtype":
+        tables[2] = tables[2].long()
+    with pytest.raises(ValueError, match="int32"):
+        tpf._check("predicate_filter", x, (x, *tables),
+                   ((257, 10), (3, 10), (3, 10), (3, 10)))
