@@ -11,7 +11,8 @@ exits non-zero, printing no result, without them. Phases:
    summary of each kernel's registers and spills, and the HGMMA count of
    each bf16 ``flash_attention`` instantiation from ``cuobjdump -sass``) and
    hold every kernel entry against its plain PyTorch version on the card,
-   exactly, on edge cases.
+   exactly, on edge cases (``join_compact`` on both of its paths, between
+   sentinels).
 2. The per-channel main path at a size users would call real: one engine,
    three channels (TweetsAboutDrugs with 1,000,000 subscriptions,
    MostThreateningTweets with 200,000, TweetsAboutCrime3 over 10,000 users),
@@ -55,7 +56,11 @@ seeded inputs at the largest shape a path above gave it (each wrapper keeps
 that shape beside its launch count), and at two timing cases where bytes
 and not the launch set the time: ``flash_decode`` over a 32,768-key cache
 and ``predicate_filter`` over the whole 2M-row ring (``flash_decode``'s
-cluster size is printed and checked at each shape); then ``torch.profiler``
+cluster size is printed and checked at each shape), ``join_compact`` and
+``flash_decode`` beside the floor under their time (the empty kernel of
+``csrc/launch_floor.cu`` on the same grid, timed the same way), and
+``join_compact``'s path (its quad path at both shapes, asserted from the
+wrapper's counts); then ``torch.profiler``
 checks that each ``flash_decode`` entry enqueues one kernel a call (last,
 so that its tracing touches no timed phase). The line before the last is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
@@ -63,6 +68,7 @@ JSON object with one entry per kernel; the last line is ``{"ok": true,
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import json
@@ -226,7 +232,7 @@ def random_conds(rng, c: int, f: int):
     return compile_conditions(chans)
 
 
-def edge_parity(dev) -> None:
+def edge_parity(dev) -> dict:
     """Exact parity of every kernel entry with its plain version on its edge
     cases: ``predicate_filter`` on int32 extremes and ragged N (and against
     the engine's ``evaluate_conditions``); ``predicate_filter_rows`` at C = 1
@@ -236,13 +242,11 @@ def edge_parity(dev) -> None:
     misaligned view refused; ``spatial_match`` in both forms on ragged shapes,
     per-channel radii and +-FAR padding (dist^2 must be inf there, never
     NaN, and no padded pair may hit); ``join_compact`` on S off every block
-    size, maxT = 1, no live target, no valid entry, both layouts and payloads
-    whose byte sums wrap past int32."""
+    size on both of its paths (``join_compact_parity``). Returns
+    ``join_compact``'s launches of each path."""
     from repro_torch.core.predicates import (Predicate, compile_conditions,
                                              evaluate_conditions)
     from repro_torch.data import synthetic as syn
-    from repro_torch.kernels.join_compact import ops as jc_ops
-    from repro_torch.kernels.join_compact import ref as jc_ref
     from repro_torch.kernels.predicate_filter import ops as pf_ops
     from repro_torch.kernels.predicate_filter import ref as pf_ref
     from repro_torch.kernels.spatial_match import ops as sm_ops
@@ -360,24 +364,118 @@ def edge_parity(dev) -> None:
     assert torch.isinf(d2[pad]).all() and not torch.isnan(d2).any(), d2
     assert hit.tolist() == [want], hit.tolist()
 
-    for s_len, max_t in ((1, 1), (37, 5), (1000, 1), (4099, 33), (257, 64)):
-        args = [rng.integers(-1, 20, (s_len, max_t)).astype(np.int32),
-                rng.integers(0, max_t + 1, s_len).astype(np.int32),
-                rng.integers(0, 9, (s_len, max_t)).astype(np.int32),
-                rng.integers(0, 4, (s_len, max_t)).astype(np.int32),
-                rng.random(s_len) < 0.7,
-                (2 ** 31 - 1 - rng.integers(0, 40, s_len)).astype(np.int32)]
-        cases = [args, [np.full_like(args[0], -1)] + args[1:],
-                 args[:4] + [np.zeros_like(args[4])] + args[5:]]
-        for case in cases:
-            dv = [torch.tensor(a, device=dev) for a in case]
+    paths = join_compact_parity(dev, rng)
+    torch.cuda.synchronize()
+    return paths
+
+
+# join_compact's edge cases: maxT off and on the 4-column quad, S off every
+# block size (256 threads: 256 rows a block on the pair path at maxT 1, 64 on
+# the quad path at maxT 16), and one case of three rows 16,384 wide
+JOIN_EDGE = [(s, t) for t in (1, 2, 3, 4, 7, 16, 17, 64)
+             for s in (1, 37, 4099)] + [(3, 16384)]
+# what the join_compact edge cases write around each output (the bool grid's
+# buffer holds the byte 0xA5): it must survive every launch
+JOIN_SENTINEL = -0x5A5A5A5B
+JOIN_PAD = 64       # sentinel elements on each side of an output
+
+
+def join_inputs(rng, s_len: int, max_t: int) -> list:
+    """Seeded numpy inputs of ``join_pairs``: tgt with -1 holes, tgt_n up to
+    maxT, 70% valid entries, payloads whose byte sums wrap past int32."""
+    return [rng.integers(-1, 20, (s_len, max_t)).astype(np.int32),
+            rng.integers(0, max_t + 1, s_len).astype(np.int32),
+            rng.integers(0, 9, (s_len, max_t)).astype(np.int32),
+            rng.integers(0, 4, (s_len, max_t)).astype(np.int32),
+            rng.random(s_len) < 0.7,
+            (2 ** 31 - 1 - rng.integers(0, 40, s_len)).astype(np.int32)]
+
+
+def join_cases(rng):
+    """(tag, numpy inputs) of every ``join_compact`` edge case: ``JOIN_EDGE``,
+    then at a quad width and off it: no live target, no valid entry,
+    tgt_n past maxT (up to int32's largest), and tgt_n 0 with every entry
+    valid."""
+    for s_len, max_t in JOIN_EDGE:
+        yield f"S={s_len} maxT={max_t}", join_inputs(rng, s_len, max_t)
+    for s_len, max_t in ((37, 16), (4099, 17)):
+        a = join_inputs(rng, s_len, max_t)
+        past = max_t + rng.integers(1, 5, s_len).astype(np.int32)
+        past[::7] = 2 ** 31 - 1
+        every = np.ones_like(a[4])
+        for tag, case in (
+                ("no live target", [np.full_like(a[0], -1)] + a[1:]),
+                ("no valid entry", a[:4] + [np.zeros_like(a[4])] + a[5:]),
+                ("tgt_n > maxT", a[:1] + [past] + a[2:4] + [every] + a[5:]),
+                ("tgt_n 0, all valid", a[:1] + [np.zeros_like(a[1])]
+                 + a[2:4] + [every] + a[5:])):
+            yield f"{tag} S={s_len} maxT={max_t}", case
+
+
+def offset_copy(x: torch.Tensor, lead: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``lead`` elements into a new
+    buffer (lead 1: 4 B off the 16-B boundary for int32, 1 B for bool)."""
+    buf = torch.empty(x.numel() + lead, dtype=x.dtype, device=x.device)
+    view = buf[lead:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def join_into_sentinel(dv: list, aggregated: bool, lead: int = 0) -> tuple:
+    """``join_compact``'s kernel into views of buffers whose ``JOIN_PAD``
+    elements on each side hold a sentinel (``lead`` more in front): a store
+    past the first or last row would overwrite one. Returns the outputs."""
+    from repro_torch.kernels.join_compact import ops as jc_ops
+    s_len, max_t = dv[0].shape
+    n, dev = s_len * max_t, dv[0].device
+    start = JOIN_PAD + lead
+    bufs = [torch.full((start + n + JOIN_PAD,), 0xA5, dtype=torch.uint8,
+                       device=dev)]
+    bufs += [torch.full((start + n + JOIN_PAD,), JOIN_SENTINEL,
+                        dtype=torch.int32, device=dev) for _ in range(3)]
+    views = [b[start:start + n] for b in bufs]
+    out = [views[0].view(torch.bool).view(s_len, max_t)] + \
+        [v.view(s_len, max_t) for v in views[1:]]
+    got = jc_ops._launch(*dv, 4, aggregated, out=out)
+    torch.cuda.synchronize()
+    for b, fill in zip(bufs, (0xA5,) + (JOIN_SENTINEL,) * 3):
+        assert bool((b[:start] == fill).all() and (b[start + n:] == fill)
+                    .all()), f"join_compact wrote past its output S={s_len} " \
+            f"maxT={max_t} lead={lead}"
+    return got
+
+
+def join_compact_parity(dev, rng) -> dict:
+    """``join_compact`` against its plain version on every ``join_cases``
+    case, both layouts, exactly, dtypes included: once on 16-B-aligned
+    tensors (the quad path where maxT % 4 == 0) and once on views 1 element
+    off the boundary (the pair path). On the card the kernel writes between
+    sentinels, and the path each launch took is checked from the wrapper's
+    counts. Returns the launches of each path."""
+    from repro_torch.kernels.join_compact import ops as jc_ops
+    from repro_torch.kernels.join_compact import ref as jc_ref
+    cuda = dev.type == "cuda"
+    paths = dict(vector=0, scalar=0)
+    for tag, case in join_cases(rng):
+        max_t = case[0].shape[1]
+        for lead in (0, 1):
+            dv = [offset_copy(torch.tensor(a, device=dev), lead)
+                  for a in case]
+            vector = lead == 0 and max_t % jc_ops.QUAD == 0
             for aggregated in (False, True):
-                got = jc_ops.join_pairs(*dv, 4, aggregated)
                 want = jc_ref.join_pairs(*dv, 4, aggregated)
+                before = (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES)
+                if cuda:
+                    got = join_into_sentinel(dv, aggregated, lead)
+                    assert (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES) == (
+                        before[0] + 1, before[1] + vector), (tag, lead)
+                    paths["vector" if vector else "scalar"] += 1
+                else:
+                    got = jc_ops.join_pairs(*dv, 4, aggregated)
                 for g, w in zip(got, want):
                     assert g.dtype == w.dtype and torch.equal(g, w), \
-                        f"join_compact S={s_len} maxT={max_t}"
-    torch.cuda.synchronize()
+                        f"join_compact {tag} lead={lead} agg={aggregated}"
+    return paths
 
 
 def attention_into_sentinel(q, k, v, causal: bool) -> torch.Tensor:
@@ -766,7 +864,23 @@ def case_spatial_match_stacked(dev, rng, shape) -> dict:
                 bound_ops=7 * c * r * u + 3 * c * (r + u))
 
 
+def floor_call(blocks: int, threads: int, smem: int = 0, cluster: int = 1):
+    """A call that launches the empty kernel of ``csrc/launch_floor.cu`` on
+    the current stream with this grid, block, dynamic shared memory and
+    cluster size: timed like the kernel, it is the floor under it."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+
+    def launch():
+        code = lib.launch_floor_launch(
+            blocks, threads, smem, cluster,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(code, "launch_floor")
+    return launch
+
+
 def case_join_compact(dev, rng, shape, aggregated: bool) -> dict:
+    """Floor: the empty kernel on the grid of the path this launch takes."""
     from repro_torch.kernels.join_compact import ops as jc_ops
     from repro_torch.kernels.join_compact import ref as jc_ref
     s_len, max_t = shape
@@ -777,8 +891,12 @@ def case_join_compact(dev, rng, shape, aggregated: bool) -> dict:
         rng.integers(0, 4, (s_len, max_t), dtype=np.int32),
         rng.random(s_len) < 0.7,
         rng.integers(1000, 40000, s_len, dtype=np.int32))]
+    # the outputs are new tensors, on the boundary like the inputs
+    vector = jc_ops.vector_ok(dv, max_t)
     return dict(wrapper=lambda: jc_ops.join_pairs(*dv, 4, aggregated),
                 plain=lambda: jc_ref.join_pairs(*dv, 4, aggregated),
+                floor=floor_call(*jc_ops.grid(s_len, max_t, vector)),
+                info=dict(path="vector" if vector else "scalar"),
                 bound_bytes=join_compact_bytes(*dv),
                 bound_ops=8 * s_len * max_t)
 
@@ -816,7 +934,8 @@ def case_flash_decode(dev, rng, shape) -> dict:
     plain version are the normalised ``decode_attention`` that
     ``attn_decode`` calls. Bound: q, the K/V rows up to kv_len and the
     output once over the memory rate. Library: SDPA with GQA and the
-    kv_len mask."""
+    kv_len mask. Floor: the empty kernel on its grid, block, shared memory
+    and cluster size."""
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
     b, h, kh, s_len, d = shape
@@ -832,7 +951,17 @@ def case_flash_decode(dev, rng, shape) -> dict:
         .expand(b, 1, 1, s_len)
     q4 = q[:, :, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    n_split = fd_ops.plan(lib, dev, b, h, kh, s_len, d, torch.bfloat16)
+    threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib.flash_decode_block(d, fd_ops.DTYPES[torch.bfloat16],
+                                        h // kh, ctypes.byref(threads),
+                                        ctypes.byref(smem)),
+                 "flash_decode_block")
     return dict(wrapper=lambda: fd_ops.decode_attention(q, k, v, kv_len),
+                floor=floor_call(b * kh * n_split, threads.value, smem.value,
+                                 n_split),
                 plain=lambda: fd_ref.decode_attention(q, k, v, kv_len),
                 library=lambda: sdpa(q4, k, v, attn_mask=mask,
                                      enable_gqa=True),
@@ -868,7 +997,9 @@ def measure(case: dict, shape: str) -> dict:
     ``ms`` from a CUDA graph of wrapper calls (only what the wrapper
     enqueues, so no host work sits between the launches), ``wrapper_ms``,
     ``plain_ms`` and, where one PyTorch call computes the same function,
-    ``library_ms`` from calls between CUDA events; beside its bound."""
+    ``library_ms`` from calls between CUDA events; beside its bound; and
+    where the case gives one, ``floor_ms``: the empty kernel on the same
+    grid, from a CUDA graph like ``ms``."""
     got, want = case["wrapper"](), case["plain"]()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
@@ -887,7 +1018,10 @@ def measure(case: dict, shape: str) -> dict:
              wrapper_ms=cuda_ms(case["wrapper"], iters),
              plain_ms=cuda_ms(case["plain"], max(3, iters // 10)),
              library_ms=(cuda_ms(case["library"], iters)
-                         if "library" in case else None))
+                         if "library" in case else None),
+             floor_ms=(graph_ms(case["floor"], iters)
+                       if "floor" in case else None),
+             **case.get("info", {}))
     torch.cuda.empty_cache()
     return k
 
@@ -985,13 +1119,20 @@ ENTRIES = {
 }
 
 
+# the launches of one path of an entry, counted beside the entry's total:
+# (module, name of the count)
+PATHS = {"join_compact_vector": ("join_compact", "VECTOR_LAUNCHES")}
+
+
 def _ops(module: str):
     import importlib
     return importlib.import_module(f"repro_torch.kernels.{module}.ops")
 
 
 def launch_counts() -> dict:
-    return {k: getattr(_ops(m), n) for k, (m, n, _) in ENTRIES.items()}
+    counts = {k: getattr(_ops(m), n) for k, (m, n, _) in ENTRIES.items()}
+    counts.update({k: getattr(_ops(m), n) for k, (m, n) in PATHS.items()})
+    return counts
 
 
 def launch_shapes() -> dict:
@@ -999,10 +1140,13 @@ def launch_shapes() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Every launch count to 0 and every largest shape to None."""
+    """Every launch count (each path's too) to 0 and every largest shape to
+    None."""
     for module, count, shape in ENTRIES.values():
         setattr(_ops(module), count, 0)
         setattr(_ops(module), shape, None)
+    for module, count in PATHS.values():
+        setattr(_ops(module), count, 0)
 
 
 def since(before: dict) -> dict:
@@ -1131,7 +1275,7 @@ def fused_path(dev, cfg: dict) -> dict:
         if dev.type == "cuda":
             want = dict.fromkeys(got, 0)
             want.update(predicate_filter=1, spatial_match_stacked=1,
-                        join_compact=1)
+                        join_compact=1, join_compact_vector=1)
             assert got == want, (tick, got)
         for b, names in groups.items():
             group_ms[b].append(1e3 * sum(reps[n].wall_time_s for n in names))
@@ -1271,13 +1415,14 @@ def compact_phase(dev, cfg: dict) -> dict:
         del eng
     assert out["compact_pallas"]["counts"] == out["pallas"]["counts"], \
         "compact_pallas and pallas disagree"
-    if cuda:     # a tick: ingest, one window discovery, one join
+    if cuda:     # a tick: ingest, one window discovery, one join (quads)
         for backend in out:
-            want = dict.fromkeys(ENTRIES, 0)
+            want = dict.fromkeys(launch_counts(), 0)
             want.update(predicate_filter=cfg["ticks"],
                         predicate_filter_rows=cfg["ticks"])
             if backend == "compact_pallas":
-                want["join_compact"] = cfg["ticks"]
+                want.update(join_compact=cfg["ticks"],
+                            join_compact_vector=cfg["ticks"])
             assert out[backend]["launches"] == want, \
                 (backend, out[backend]["launches"])
     results = sum(v[0] for c in out["pallas"]["counts"] for v in c.values())
@@ -1367,7 +1512,12 @@ def every_plan(dev, cfg: dict) -> dict:
             del reps
     launches = launch_counts()
     if dev.type == "cuda":
+        # which join_compact path a plan takes follows its bucket's maxT
+        vector = launches.pop("join_compact_vector")
+        want_launches.pop("join_compact_vector")
         assert launches == want_launches, (launches, want_launches)
+        assert vector <= launches["join_compact"], vector
+        launches["join_compact_vector"] = vector
     out = {n: dict(notified=v[0], matched_rows=len(v[1]))
            for n, v in seen.items()}
     return dict(runs=runs, wall_s=time.perf_counter() - t0, channels=out,
@@ -1583,7 +1733,8 @@ def enriched_phase(dev, cfg: dict, lm_cfg, budget: int) -> dict:
         if cuda:
             want = dict.fromkeys(got, 0)
             want.update(predicate_filter=1, spatial_match_stacked=1,
-                        join_compact=1, flash_attention=lm_cfg.superlayer_repeat
+                        join_compact=1, join_compact_vector=1,
+                        flash_attention=lm_cfg.superlayer_repeat
                         * len(groups))
             assert got == want, (tick, got)
             score_ms.append([ev[0].elapsed_time(ev[1])
@@ -1669,9 +1820,11 @@ def main() -> int:
     assert len(hgmma) == 8 and min(hgmma.values()) >= 2, hgmma
 
     t = time.perf_counter()
-    edge_parity(dev)
+    paths = edge_parity(dev)
     print(f"[parity] exact on the edge cases in "
-          f"{time.perf_counter() - t:.1f} s")
+          f"{time.perf_counter() - t:.1f} s; join_compact launches by path "
+          f"{json.dumps(paths)}, every output between intact sentinels")
+    assert min(paths.values()) > 0, paths
     t = time.perf_counter()
     worst = flash_edge_parity(dev)
     print(f"[parity] attention kernels within tolerance on the edge cases in "
@@ -1708,7 +1861,8 @@ def main() -> int:
     print(f"[fused] totals {json.dumps(fp['totals'])}; ring pending "
           f"{fp['ring_pending']}, queue pending {fp['queue_pending']}")
     print(f"[fused] launches {json.dumps(fp['launches'])} (1 predicate_filter"
-          f", 1 spatial_match_stacked, 1 join_compact per tick); largest "
+          f", 1 spatial_match_stacked, 1 join_compact on its vector path per "
+          f"tick); largest "
           f"shapes {json.dumps(fp['shapes'])}; tick 0 equal to "
           f"execute_channel for {fp['same']} channels")
     print(f"[fused] max_memory_allocated "
@@ -1827,6 +1981,16 @@ def main() -> int:
             k["n_split"] = n
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
+        if k["floor_ms"] is not None:
+            lib += f", floor {k['floor_ms']:.4f} ms (empty kernel, same grid)"
+        if name == "join_compact":
+            # the path the timed launch takes, and the path's main-path
+            # launches: the vector path at both shapes
+            k["vector_launches"] = path["launches"]["join_compact_vector"]
+            assert k["path"] == "vector" and k["vector_launches"] == \
+                path["launches"][name] > 0, (where, k, path["launches"])
+            lib += (f", {k['path']} path ({k['vector_launches']} of "
+                    f"{path['launches'][name]} launches on the vector path)")
         print(f"[kernel] {name} {k['shape']} ({where}): {k['ms']:.4f} ms "
               f"(graph of wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, "
               f"plain {k['plain_ms']:.4f} ms{lib}, bound {k['bound_ms']:.4f} "
@@ -1842,8 +2006,9 @@ def main() -> int:
             "launches_on": where, **{key: k[key] for key in (
                 "max_abs_err", "tolerance", "tolerance_rel",
                 "within_tolerance", "ms", "wrapper_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "shape")},
-            **({"n_split": k["n_split"]} if "n_split" in k else {})})
+                "bound_ms", "bound_by", "library_ms", "floor_ms", "shape")},
+            **{key: k[key] for key in ("n_split", "path", "vector_launches")
+               if key in k}})
     assert all(e["within_tolerance"] and e["launches"] > 0
                for e in measured), measured
     # the second rows: join_compact at the compact phase's real grid,

@@ -685,6 +685,24 @@ int clusters_d(int d, int g, int n_split, int* count) {
   }
 }
 
+// a launch's threads and dynamic shared memory a block, for the launch
+// floor's empty kernel (chip_smoke.py)
+template <typename T>
+int block_d(int d, int g, int* threads, int* smem) {
+  auto take = [&](auto, int configured, const Block& blk) {
+    *threads = blk.threads;
+    *smem = static_cast<int>(blk.smem);
+    return configured;
+  };
+  switch (d) {
+    case 16: return dispatch<T, 16>(g, take);
+    case 32: return dispatch<T, 32>(g, take);
+    case 64: return dispatch<T, 64>(g, take);
+    case 128: return dispatch<T, 128>(g, take);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 bool valid_split(int n_split) {
   return n_split == 1 || n_split == 2 || n_split == 4 || n_split == 8 ||
          n_split == 16;
@@ -731,5 +749,19 @@ extern "C" int flash_decode_clusters(int head_dim, int dtype, int group,
   if (dtype == 0) return clusters_d<float>(head_dim, group, n_split, count);
   if (dtype == 1)
     return clusters_d<__nv_bfloat16>(head_dim, group, n_split, count);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The threads and dynamic shared memory of a block of a launch with this
+// head dim, dtype and group, into *threads and *smem. Returns 0 or the
+// cudaError_t of the kernel's configuration.
+extern "C" int flash_decode_block(int head_dim, int dtype, int group,
+                                  int* threads, int* smem) {
+  *threads = *smem = 0;
+  if (group <= 0 || group > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return block_d<float>(head_dim, group, threads, smem);
+  if (dtype == 1)
+    return block_d<__nv_bfloat16>(head_dim, group, threads, smem);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -107,7 +107,7 @@ def library() -> ctypes.CDLL:
         lib.predicate_filter_rows_launch.restype = i
         lib.spatial_match_stacked_launch.argtypes = [p, p, p, p, i, i, i, p]
         lib.spatial_match_stacked_launch.restype = i
-        lib.join_compact_launch.argtypes = [p] * 10 + [i, i, i, i, p]
+        lib.join_compact_launch.argtypes = [p] * 10 + [i, i, i, i, i, p]
         lib.join_compact_launch.restype = i
         lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f, i, p]
         lib.flash_attention_launch.restype = i
@@ -115,6 +115,10 @@ def library() -> ctypes.CDLL:
         lib.flash_decode_launch.restype = i
         lib.flash_decode_clusters.argtypes = [i, i, i, i, p]
         lib.flash_decode_clusters.restype = i
+        lib.flash_decode_block.argtypes = [i, i, i, p, p]
+        lib.flash_decode_block.restype = i
+        lib.launch_floor_launch.argtypes = [ctypes.c_longlong, i, i, i, p]
+        lib.launch_floor_launch.restype = i
         _lib = lib
     return _lib
 

@@ -61,14 +61,21 @@ def _edge_cases():
     tgt, tn, mem, br, valid, pay = _pair_inputs(rng, 45, 6)
     pay = (I32_MAX - rng.integers(0, 40, 45)).astype(np.int32)
     yield "payload near int32 max", (tgt, tn, mem, br, valid, pay)
+    tgt, tn, mem, br, valid, pay = _pair_inputs(rng, 29, 8)
+    past = (8 + rng.integers(1, 5, 29)).astype(np.int32)
+    past[::7] = I32_MAX
+    yield "tgt_n > maxT", (tgt, past, mem, br, valid, pay)
+    yield "tgt_n=0, valid all True", (tgt, np.zeros_like(tn), mem, br,
+                                      np.ones_like(valid), pay)
 
 
 @pytest.mark.parametrize("aggregated", [False, True])
 def test_join_pairs_plain_matches_ref_and_interpret_kernel(aggregated):
     """The port's plain join_pairs (what a CPU tensor runs) equals the
     reference's jnp ref and its interpret-mode Pallas kernel bit for bit,
-    dtypes included, on ragged S, maxT = 1, no live target, no valid entry
-    and payloads whose byte sums wrap past int32."""
+    dtypes included, on ragged S, maxT = 1, no live target, no valid entry,
+    payloads whose byte sums wrap past int32, tgt_n past maxT and tgt_n 0
+    with every entry valid."""
     for tag, (tgt, tn, mem, br, valid, pay) in _edge_cases():
         args = (tgt, tn, mem, br, valid, pay)
         want = jjc_ref.join_pairs(*map(jnp.asarray, args), 3, aggregated)
@@ -81,6 +88,25 @@ def test_join_pairs_plain_matches_ref_and_interpret_kernel(aggregated):
                                   "bids"), want, kern, got):
             assert_same(w, g, f"{tag} {name} (ref)")
             assert_same(k, g, f"{tag} {name} (interpret kernel)")
+
+
+@pytest.mark.parametrize("max_t,offset,want", [
+    (16, 0, True), (16384, 0, True), (5, 0, False), (33, 0, False),
+    (16, 1, False)])
+def test_vector_ok_takes_aligned_quads(max_t, offset, want):
+    """The kernel's quad path takes maxT % 4 == 0 on tensors that start on a
+    16-byte boundary: new tensors do; a contiguous view one element (4 B)
+    into its storage does not, whichever tensor it is."""
+    rng = np.random.default_rng(max_t)
+    args = [torch.as_tensor(a) for a in _pair_inputs(rng, 3, max_t)]
+    if offset:
+        buf = torch.zeros(3 * max_t + offset, dtype=torch.int32)
+        args[2] = buf[offset:].view(3, max_t)
+        assert args[2].is_contiguous() and args[2].storage_offset() == 1
+    assert tjc_ops.vector_ok(args, max_t) is want
+    blocks, threads = tjc_ops.grid(3, max_t, want)
+    per_block = threads * (tjc_ops.QUAD if want else 1)
+    assert blocks * per_block >= 3 * max_t > (blocks - 1) * per_block
 
 
 @pytest.fixture(scope="module")

@@ -119,28 +119,82 @@ def test_spatial_match_stacked_kernel_matches_plain(rng, cuda_device):
     assert sm_ops.STACKED_LAUNCHES == before + 3
 
 
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
 def test_join_compact_kernel_matches_plain(rng, cuda_device):
-    before = jc_ops.LAUNCHES
-    for s, max_t in ((1, 1), (37, 5), (1000, 33), (4099, 64)):
-        args = (rng.integers(-1, 20, (s, max_t)).astype(np.int32),
-                rng.integers(0, max_t + 1, s).astype(np.int32),
-                rng.integers(0, 9, (s, max_t)).astype(np.int32),
-                rng.integers(0, 3, (s, max_t)).astype(np.int32),
-                rng.random(s) < 0.7,
-                (2 ** 31 - 1 - rng.integers(0, 40, s)).astype(np.int32))
-        dev = [torch.as_tensor(a, device=cuda_device) for a in args]
-        for aggregated in (False, True):
-            got = jc_ops.join_pairs(*dev, 3, aggregated)
-            want = jc_ref.join_pairs(*dev, 3, aggregated)
-            assert got[0].dtype == torch.bool
-            for g, w in zip(got, want):
-                assert g.dtype == w.dtype and torch.equal(g, w)
+    """Exact, dtypes included, on ``chip_smoke.join_cases`` (maxT 1, 2, 3,
+    4, 7, 16, 17 and 64 with S off every block size, three rows 16,384
+    wide, no live target, no valid entry, tgt_n > maxT, tgt_n 0 with every
+    entry valid, byte sums that wrap past int32), both layouts: on new
+    tensors the quad path runs where maxT % 4 == 0 and the pair path
+    elsewhere; on views 4 B off the 16-B boundary only the pair path."""
+    cs = _chip_smoke()
+    before = (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES)
+    launches = vector = 0
+    for tag, case in cs.join_cases(rng):
+        max_t = case[0].shape[1]
+        for lead in (0, 1):
+            dev = [cs.offset_copy(torch.as_tensor(a, device=cuda_device),
+                                  lead) for a in case]
+            assert jc_ops.vector_ok(dev, max_t) == (lead == 0
+                                                    and max_t % 4 == 0)
+            for aggregated in (False, True):
+                got = jc_ops.join_pairs(*dev, 3, aggregated)
+                want = jc_ref.join_pairs(*dev, 3, aggregated)
+                assert got[0].dtype == torch.bool
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), \
+                        (tag, lead, aggregated)
+                launches += 1
+                vector += lead == 0 and max_t % 4 == 0
     torch.cuda.synchronize()
-    assert jc_ops.LAUNCHES == before + 8
+    assert (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES) == (
+        before[0] + launches, before[1] + vector)
     jc_ops.SHAPE = None
-    jc_ops.join_pairs(*dev, 3, True)
-    jc_ops.join_pairs(*(a[:1000].contiguous() for a in dev), 3, True)
+    small = [torch.as_tensor(a, device=cuda_device)
+             for a in cs.join_inputs(rng, 4099, 64)]
+    jc_ops.join_pairs(*small, 3, True)
+    jc_ops.join_pairs(*(a[:1000].contiguous() for a in small), 3, True)
     assert jc_ops.SHAPE == (4099, 64)      # the largest launch is kept
+
+
+def test_join_compact_stores_stay_in_the_output(rng, cuda_device):
+    """Every output is a view into a buffer whose neighbours hold a
+    sentinel, on both paths: no quad or pair writes past its rows, and the
+    values inside match the plain version."""
+    cs = _chip_smoke()
+    for tag, case in cs.join_cases(rng):
+        for lead in (0, 1):
+            dev = [cs.offset_copy(torch.as_tensor(a, device=cuda_device),
+                                  lead) for a in case]
+            for aggregated in (False, True):
+                got = cs.join_into_sentinel(dev, aggregated, lead)
+                want = jc_ref.join_pairs(*dev, 4, aggregated)
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g, w), \
+                        (tag, lead, aggregated)
+
+
+@pytest.mark.parametrize("shape,aggregated", [((16384, 16), True),
+                                              ((8192, 16384), False)])
+def test_join_compact_vector_path_at_the_path_shapes(rng, cuda_device, shape,
+                                                     aggregated):
+    """The fused path's shape and the compact phase's real grid take the
+    quad path, exactly."""
+    cs = _chip_smoke()
+    case = cs.case_join_compact(cuda_device, rng, shape, aggregated)
+    assert case["info"]["path"] == "vector"
+    before = (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES)
+    got, want = case["wrapper"](), case["plain"]()
+    torch.cuda.synchronize()
+    assert (jc_ops.LAUNCHES, jc_ops.VECTOR_LAUNCHES) == (before[0] + 1,
+                                                         before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
@@ -434,9 +488,7 @@ def test_flash_decode_enqueues_one_kernel_a_call(cuda_device):
     kernel and nothing else: ``chip_smoke.py``'s check, which brackets the
     call with two marker kernels and profiles a window again where the
     profiler shows no marker, as it can for a process's first."""
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    import chip_smoke
-    seen = chip_smoke.one_kernel_per_decode_call(cuda_device)
+    seen = _chip_smoke().one_kernel_per_decode_call(cuda_device)
     assert sorted(seen) == ["decode_attention", "decode_attention_partial"]
 
 

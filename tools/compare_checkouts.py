@@ -2,7 +2,7 @@
 """Compare checkouts of the port on one card, in turns.
 
     python3 tools/compare_checkouts.py PARENT CHANGE [--rounds 1]
-        [--only serve flash_attention flash_decode predicate_filter ...]
+        [--only serve compact flash_attention flash_decode join_compact ...]
 
 A round runs every checkout in the order given and then in reverse
 (PARENT, CHANGE, CHANGE, PARENT), each in a process of its own that imports
@@ -15,14 +15,19 @@ prefill's shape and at the enriched tick's scorer batch, beside SDPA, and
 every other kernel entry at the shapes of PERF.md's kernel table
 (``flash_decode`` at the serve decode and a 32,768-key cache,
 ``predicate_filter`` at the ingest and a full scan of the 2M-row ring, the
-stacked rows, both spatial joins, the compact join). A
-checkout is a directory holding ``chip_smoke.py`` and ``src/``, such as an
-unpacked ``git archive`` of the parent commit. ``--only`` keeps the named
-parts (``serve`` or a kernel entry's name) and skips the rest.
+stacked rows, both spatial joins, ``join_compact`` at the fused path's and
+the compact phase's shapes, each beside the empty kernel's floor on its grid
+where the checkout measures one), and the compact phase's ``execute_all``
+ticks (``chip_smoke.compact_phase`` at ``chip_smoke.COMPACT``, both
+backends, host clock ending in a device sync). A checkout is a directory
+holding ``chip_smoke.py`` and ``src/``, such as an unpacked ``git archive``
+of the parent commit. ``--only`` keeps the named parts (``serve``,
+``compact`` or a kernel entry's name) and skips the rest.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
@@ -75,7 +80,8 @@ def one(root: str, only) -> int:
     # the other kernels at the shapes of PERF.md's kernel table: the serve
     # decode and a 32,768-key cache; the ingest, a full scan of the main
     # path's 2M-row ring and the compact phase's stacked rows; the spatial
-    # joins and the fused path's compact join
+    # joins; the compact join at the fused path's shape and the compact
+    # phase's real grid
     cases = [
         ("flash_decode", "serve decode", (b, heads[0], heads[1], p + g,
                                           heads[2]),
@@ -96,6 +102,9 @@ def one(root: str, only) -> int:
         ("join_compact", "fused path", (16384, 16),
          lambda dev, rng, shape: chip_smoke.case_join_compact(
              dev, rng, shape, aggregated=True)),
+        ("join_compact", "compact phase", (8192, 16384),
+         lambda dev, rng, shape: chip_smoke.case_join_compact(
+             dev, rng, shape, aggregated=False)),
     ]
     for name, where, shape, case in cases:
         if only is not None and name not in only:
@@ -103,12 +112,26 @@ def one(root: str, only) -> int:
         k = chip_smoke.measure(case(dev, rng, shape), str(shape))
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
+        if k.get("floor_ms") is not None:
+            lib += f", floor {k['floor_ms']:.4f} ms"
+        if "path" in k:
+            lib += f", {k['path']} path"
         print(f"{root}: {name} {where} {shape}: {k['ms']:.4f} ms, wrapper "
               f"{k['wrapper_ms']:.4f} ms, plain {k['plain_ms']:.4f} ms"
               f"{lib}, bound {k['bound_ms']:.4f} ms, max_abs_err "
               f"{k['max_abs_err']} "
               f"({'within' if k['within_tolerance'] else 'OUTSIDE'} "
               f"tolerance)", flush=True)
+    if only is None or "compact" in only:
+        torch.cuda.empty_cache()
+        cp = chip_smoke.compact_phase(dev, chip_smoke.COMPACT)
+        for backend in ("compact_pallas", "pallas"):
+            walls = ", ".join(f"{w:.3f}" for w in cp[backend]["walls_ms"])
+            print(f"{root}: compact phase {backend} execute_all ms a tick "
+                  f"[{walls}]; launches "
+                  f"{json.dumps(cp[backend]['launches'])}", flush=True)
+        del cp
+        torch.cuda.empty_cache()
     print(f"{root}: {chip_smoke.card_line()}", flush=True)
     return 0
 
@@ -118,7 +141,8 @@ def main() -> int:
     ap.add_argument("checkouts", nargs="+")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--only", nargs="+", default=None,
-                    help="time only these parts: serve, or kernel entries")
+                    help="time only these parts: serve, compact, or kernel "
+                         "entries")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
