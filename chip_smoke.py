@@ -46,6 +46,21 @@ exits non-zero, printing no result, without them. Phases:
    rank rule checked on the host for one tick, 28 ``flash_attention``
    launches per scored group.
 
+8. Churn: phase 3's engine and plans with TweetsAboutCrime3 turned into an
+   explicit cohort of 5,000 users, under the reference's churn suite at 1M
+   live subscriptions (``benchmarks/churn.py``: 4 batches a tick of 2,500
+   TweetsAboutDrugs adds and removes, 500 MostThreateningTweets, 312 cohort
+   users) and 65,536 tweets a tick, through ``core/churn.run_ticks``: (a)
+   the incremental engine, 2 warmup and 20 timed ticks; (b) the same engine
+   built again at ``pipeline_depth=2``, whose counters must equal (a)'s;
+   (c) a rebuild engine (``incremental=False``), 4 timed ticks, and the
+   ratio of (a)'s subscription mutations a second over (c)'s; (d) (a)'s
+   engine for 6 ticks with ``RuntimePlanner`` hooked in. Conservation every
+   tick, no rebuilds and some patches in (a) and (b), one
+   ``predicate_filter``, ``spatial_match_stacked`` and ``join_compact``
+   (quad path) a tick, and the cohort's spatial hits of one tick against
+   numpy.
+
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
 bfloat16, the reference kernel test's). Last, every kernel entry is held
@@ -1064,7 +1079,7 @@ def spatial_hits_numpy(t: np.ndarray, u: np.ndarray, radius: float) -> int:
     return int((dist2 < np.float32(radius) ** 2).sum())
 
 
-def build_main_engine(dev, cfg: dict, rng):
+def build_main_engine(dev, cfg: dict, rng, incremental: bool = True):
     """The main path's engine: three channels, the population-skewed
     subscriptions of the two param channels on 4 brokers, and the users.
     Returns (engine, specs, per-state subscription counts, users)."""
@@ -1077,7 +1092,8 @@ def build_main_engine(dev, cfg: dict, rng):
                     max_candidates=cfg["max_candidates"],
                     brokers=tuple(f"Broker{i}" for i in range(4)),
                     max_deliver_pairs=cfg["max_deliver_pairs"],
-                    max_notify=cfg["max_notify"], use_pallas=True, device=dev)
+                    max_notify=cfg["max_notify"], use_pallas=True,
+                    incremental=incremental, device=dev)
     specs = channel_specs()
     for spec in specs:
         eng.create_channel(spec)
@@ -1766,6 +1782,223 @@ def enriched_phase(dev, cfg: dict, lm_cfg, budget: int) -> dict:
                 budget=budget)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: churn
+# ---------------------------------------------------------------------------
+
+# host functions of the incremental maintenance whose time phase 8 reports
+PATCH_FNS = ("_group_patches", "_apply_group_patches", "_flat_patches",
+             "_apply_flat_patches", "_spatial_patches",
+             "_apply_spatial_patches")
+CONTROL_FNS = ("subscribe_bulk", "remove_subscriptions", "subscribe_users",
+               "unsubscribe_users")
+# the run's counters two schedules of the same seed must agree on
+CHURN_COUNTERS = ("adds", "removes", "user_adds", "user_removes", "results",
+                  "delivered_pairs", "delivered_sids", "spilled", "dropped",
+                  "live_subs")
+
+
+def host_timers(eng, names) -> dict:
+    """Wrap the engine's methods ``names`` (instance attributes, so the
+    engine's own calls go through them) to add their host seconds to the
+    returned dict."""
+    spent = dict.fromkeys(names, 0.0)
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return timed
+
+    for name in names:
+        setattr(eng, name, wrap(name, getattr(eng, name)))
+    return spent
+
+
+def churn_engine(dev, cfg: dict, incremental: bool = True):
+    """The main path's engine with its plans (phase 3's), TweetsAboutCrime3
+    converted to an explicit cohort of ``cfg["cohort"]`` users. Returns
+    (engine, specs, users, live sIDs, workloads)."""
+    from repro_torch.core.churn import ChurnWorkload
+
+    rng = np.random.default_rng(SEED + 8)
+    eng, specs, _, users = build_main_engine(dev, cfg, rng, incremental)
+    for name, plan in fused_plans().items():
+        eng.set_plan(name, plan)
+    drugs, threat, crime = specs
+    eng.subscribe_users(crime.name, rng.choice(cfg["users"], cfg["cohort"],
+                                               replace=False))
+    # the aggregator numbers a channel's subscriptions 0, 1, ...
+    live = {drugs.name: np.arange(cfg["drug_subs"], dtype=np.int32),
+            threat.name: np.arange(cfg["threat_subs"], dtype=np.int32)}
+    for name, sids in live.items():
+        assert eng.channels[name].aggregator.num_subscriptions == len(sids)
+    wl = [ChurnWorkload(drugs.name, cfg["drug_churn"], cfg["drug_churn"],
+                        num_brokers=4, user_channel=crime.name,
+                        user_churn_per_tick=cfg["user_churn"]),
+          ChurnWorkload(threat.name, cfg["threat_churn"],
+                        cfg["threat_churn"], num_brokers=4)]
+    return eng, specs, users, live, wl
+
+
+def churn_run(dev, cfg: dict, eng, specs, users, live, wl, ticks: int,
+              warmup: int, depth: int = 1, check_tick=None,
+              use_planner: bool = False) -> dict:
+    """``run_ticks`` on a phase-8 engine with the checks in its hooks:
+    conservation of every report, each tick's kernel launches (on the card;
+    1 predicate_filter, 1 spatial_match_stacked, 1 join_compact on its quad
+    path), and at ``check_tick`` the cohort's spatial hits against numpy.
+    Returns the report, per-tick walls, host seconds by function, the
+    dispatch-to-materialize latencies and the launch counts."""
+    from repro_torch.core import records as R
+    from repro_torch.core.churn import run_ticks
+    from repro_torch.core.planner import RuntimePlanner
+    from repro_torch.core.predicates import compile_conditions
+    from repro_torch.data import synthetic as syn
+
+    cuda = dev.type == "cuda"
+    crime = specs[2]
+    one = compile_conditions([list(crime.fixed_preds)])
+    host = host_timers(eng, PATCH_FNS + CONTROL_FNS)
+    pends, latency = [], []
+    dispatch = eng.dispatch
+
+    def keep_pending(request):
+        # each dispatch's latency, read once it synced; handles are not
+        # kept past their sync
+        for p in pends:
+            if p.done:
+                latency.append(p.latency_s)
+        pends[:] = [p for p in pends if not p.done] + [dispatch(request)]
+        return pends[-1]
+
+    eng.dispatch = keep_pending
+    batches = {}
+
+    def make_batch(r, n, t0):
+        # tweet_batch's draws, keeping the host arrays for the numpy check
+        f, loc = syn.tweet_arrays(r, n, t0)
+        batches[t0] = (f, loc)
+        return R.RecordBatch.from_numpy(f, loc, device=dev)
+
+    planner = RuntimePlanner(eng) if use_planner else None
+    stamps, hits = [], []
+
+    def on_tick(tick, reports):
+        stamps.append(time.perf_counter())
+        if planner is not None:
+            planner.step(reports)
+        for rep in reports.values():
+            check_conservation(rep)
+        if cuda and depth == 1 and not use_planner:
+            got = since(before[0])
+            want = dict.fromkeys(got, 0)
+            want.update(predicate_filter=1, spatial_match_stacked=1,
+                        join_compact=1, join_compact_vector=1)
+            assert got == want, (tick, got)
+            before[0] = launch_counts()
+        if tick == check_tick:
+            f, loc = batches[max(batches)]
+            cohort = eng.channels[crime.name].cohort.slot_uids()
+            want = spatial_hits_numpy(loc[_host_match(f, one)],
+                                      users[cohort[cohort >= 0]],
+                                      crime.spatial_radius)
+            got = reports[crime.name].num_results
+            assert got == want, (tick, got, want)
+            hits.append(got)
+        batches.clear()
+
+    reset_launch_counts()
+    before = [launch_counts()]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    rep = run_ticks(eng, wl, ticks, np.random.default_rng(SEED + 9),
+                    flags=None, deliver=True,
+                    ingest_per_tick=cfg["tick_rows"],
+                    make_batch=None if depth > 1 else make_batch,
+                    warmup=warmup, live_sids=live,
+                    churn_rounds=cfg["rounds"], use_channel_plans=True,
+                    on_tick=on_tick, pipeline_depth=depth)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    latency += [p.latency_s for p in pends]
+    eng.dispatch = dispatch
+    for name in PATCH_FNS + CONTROL_FNS:
+        del eng.__dict__[name]
+    walls = np.diff(stamps[warmup:]) if depth == 1 else np.zeros(0)
+    return dict(report=rep, walls_ms=1e3 * walls, host_s=host,
+                latency_ms=[1e3 * x for x in latency[warmup:]],
+                launches=launches, hits=hits, peak_gib=peak,
+                switches=[] if planner is None else [
+                    (sw.tick, sw.channel, sw.old.to_dict(), sw.new.to_dict())
+                    for sw in planner.switches])
+
+
+def churn_phase(dev, cfg: dict) -> dict:
+    """Phase 8: (a) the incremental engine, depth 1; (b) the same engine
+    built again, depth 2 (``TickPipeline``); (c) a rebuild engine
+    (``incremental=False``); (d) (a)'s engine with ``RuntimePlanner``
+    hooked into ``run_ticks``."""
+    cuda = dev.type == "cuda"
+    w, t = cfg["warmup"], cfg["ticks"]
+    out = {}
+    t0 = time.perf_counter()
+    a_parts = churn_engine(dev, cfg)
+    out["setup_s"] = time.perf_counter() - t0
+    a = churn_run(dev, cfg, *a_parts, ticks=w + t, warmup=w, check_tick=0)
+    out["a"] = a
+    m = a["report"].maintenance
+    assert m.rebuilds == 0 and m.patches > 0 and m.traces == 0, m
+    assert a["hits"], a["hits"]
+    if cuda:
+        n = w + t
+        assert a["launches"]["predicate_filter"] == n and \
+            a["launches"]["spatial_match_stacked"] == n and \
+            a["launches"]["join_compact"] == n == \
+            a["launches"]["join_compact_vector"], a["launches"]
+    eng_a = a_parts[0]
+
+    b_parts = churn_engine(dev, cfg)
+    b = churn_run(dev, cfg, *b_parts, ticks=w + t, warmup=w, depth=2)
+    out["b"] = b
+    ra, rb = a["report"], b["report"]
+    assert [getattr(ra, k) for k in CHURN_COUNTERS] == \
+        [getattr(rb, k) for k in CHURN_COUNTERS], (ra, rb)
+    m = rb.maintenance
+    assert m.rebuilds == 0 and m.patches > 0 and m.traces == 0, m
+    assert rb.pipeline_depth == 2, rb.pipeline_depth
+    if cuda:
+        n = w + t
+        assert b["launches"]["predicate_filter"] == n and \
+            b["launches"]["spatial_match_stacked"] == n and \
+            b["launches"]["join_compact"] == n == \
+            b["launches"]["join_compact_vector"], b["launches"]
+    del b_parts
+    if cuda:
+        torch.cuda.empty_cache()
+
+    c_parts = churn_engine(dev, cfg, incremental=False)
+    c = churn_run(dev, cfg, *c_parts, ticks=w + cfg["rebuild_ticks"],
+                  warmup=w)
+    out["c"] = c
+    assert c["report"].maintenance.patches == 0, c["report"].maintenance
+    del c_parts
+    if cuda:
+        torch.cuda.empty_cache()
+
+    d = churn_run(dev, cfg, *a_parts, ticks=cfg["planner_ticks"], warmup=0,
+                  use_planner=True)
+    out["d"] = d
+    assert d["report"].queue_pending == 0, d["report"]
+    out["ratio"] = ra.subs_per_s / max(c["report"].subs_per_s, 1e-9)
+    del eng_a, a_parts
+    return out
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -1787,6 +2020,14 @@ SERVE = dict(batch=8, prompt_len=512, gen=32)
 LONG_CACHE = 32768      # keys of flash_decode's long-cache timing case
 ENRICH = dict(MAIN, ticks=4, spatial_check_ticks=(0,), rank_check_tick=1)
 ENRICH_BUDGET = 4096
+# phase 8: the main engine under the reference's churn suite at 1M live
+# subscriptions (benchmarks/churn.py: n_live // 400 = 2,500 adds and
+# removes a batch, cohort churn max(64, 2,500 // 8) = 312 users a batch,
+# ROUNDS = 4 batches a tick); MostThreateningTweets at its 200,000 the same
+# way (500)
+CHURN = dict(MAIN, cohort=5000, drug_churn=2500, threat_churn=500,
+             user_churn=312, rounds=4, warmup=2, ticks=20, rebuild_ticks=4,
+             planner_ticks=6)
 
 
 def main() -> int:
@@ -1918,6 +2159,49 @@ def main() -> int:
           f"rule held on {en['rank_checked_slots']} slots; launches "
           f"{json.dumps(en['launches'])}; max_memory_allocated "
           f"{en['peak_gib']:.2f} GiB")
+
+    torch.cuda.empty_cache()
+    card = card_line()
+    t = time.perf_counter()
+    ch = churn_phase(dev, CHURN)
+    churn_s = time.perf_counter() - t
+    for key, what in (("a", "incremental, depth 1"),
+                      ("b", "incremental, depth 2 (TickPipeline)"),
+                      ("c", "rebuild (incremental=False)"),
+                      ("d", "incremental + RuntimePlanner")):
+        r = ch[key]
+        rep = r["report"]
+        n = max(rep.ticks, 1)
+        walls = r["walls_ms"]
+        wall_txt = (f"per tick mean {1e3 * rep.wall_s / n:.2f} ms" +
+                    (f", p50 {np.median(walls):.2f}, max {np.max(walls):.2f}"
+                     f" ms (between ticks)" if len(walls) else ""))
+        lat = r["latency_ms"]
+        print(f"[churn] ({key}) {what} on {card}: {rep.ticks} timed ticks "
+              f"in {rep.wall_s:.3f} s, {wall_txt}; {rep.ticks_per_s:.3f} "
+              f"ticks/s, {rep.subs_per_s:.0f} subs/s; maintenance "
+              f"{json.dumps(dataclasses.asdict(rep.maintenance))}; "
+              f"pipeline_depth {rep.pipeline_depth}; "
+              f"PendingExecution.latency_s mean "
+              f"{np.mean(lat) if lat else 0:.2f} ms, max "
+              f"{np.max(lat) if lat else 0:.2f} ms; max_memory_allocated "
+              f"{r['peak_gib']:.2f} GiB")
+        ticks_all = {"a": CHURN["warmup"] + CHURN["ticks"],
+                     "b": CHURN["warmup"] + CHURN["ticks"],
+                     "c": CHURN["warmup"] + CHURN["rebuild_ticks"],
+                     "d": CHURN["planner_ticks"]}[key]
+        host = {k: round(1e3 * v / ticks_all, 3)
+                for k, v in r["host_s"].items()}
+        print(f"[churn] ({key}) host ms per tick (all {ticks_all} ticks) by "
+              f"function on {card}: {json.dumps(host)}; counters "
+              f"{json.dumps({k: getattr(rep, k) for k in CHURN_COUNTERS})}"
+              f", drain_calls {rep.drain_calls}; launches "
+              f"{json.dumps(r['launches'])}")
+    print(f"[churn] (a) cohort spatial hits equal to numpy: {ch['a']['hits']}"
+          f"; (b) counters equal to (a)'s; (d) switches "
+          f"{json.dumps(ch['d']['switches'])}; setup {ch['setup_s']:.1f} s")
+    print(f"[churn] subs/s incremental over rebuild {ch['ratio']:.2f}x on "
+          f"{card}; phase 8 in {churn_s:.1f} s")
 
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)

@@ -22,11 +22,16 @@ Two execution surfaces, as in the reference engine:
   whose channel churned go epoch-stale and drop (counted). Per stage,
   delivered + spilled + dropped == produced == fresh + retried.
 
-The host reads a plan-group's outputs with ONE device->host copy per join
-group (``_host_arrays``); the remaining sync points are the ``bad_index``
-shape bucket (one read per plan-group) and the compact backends' live total
-(one read per compact plan-group). The reports' ``result`` tensors stay on
-the engine's device.
+``execute`` is ``dispatch(request).sync()``: ``dispatch`` / ``dispatch_all``
+enqueue every plan-group's work on the engine's CUDA stream and return a
+``runtime.PendingExecution`` whose ``sync()`` is the first host read of the
+outputs, ONE device->host copy per join group (``_host_arrays``). A
+plan-group's dispatch has two host sync points, both documented on
+``dispatch``: the ``bad_index`` shape bucket and the compact backends' live
+total. The reports' ``result`` tensors stay on the engine's device.
+``ExecutionRequest(resolve_spills=True)`` captures overflowed pairs into the
+SpillQueue's epoch-free resolved lane against the dispatch-time sID tables,
+which ``core/runtime.TickPipeline`` needs when it defers a sync past churn.
 
 ``use_pallas=True`` (the ``"pallas"`` family) routes predicate evaluation
 through the ``predicate_filter`` CUDA kernel (ingest, and the fused
@@ -36,20 +41,20 @@ through ``join_compact`` (``"compact_pallas"``); ``"oracle"`` runs the plain
 PyTorch versions. On a CPU engine the kernels' wrappers run their plain
 versions (see ``repro_torch/kernels``).
 
-The stacked caches are rebuilt from the host on every epoch change, in the
-reference's layouts (slot / flat_slot / compacted); the reference patches
-them in place instead, so only ``maintenance.rebuilds`` differs.
+The fused path's stacked caches (group slots, flat slots, per-channel
+spatial cohorts) follow the reference's epoch/delta protocol: an epoch move
+patches the touched rows in place (``index_copy_`` / ``index_put_`` of the
+rows the aggregator or cohort reports, one host->device copy per patched
+channel), and a delta gap, a whole-table delta, exceeded padded capacity, a
+changed group cap, a user-version bump, cohort creation or
+``incremental=False`` rebuilds. ``maintenance.patches`` and ``rebuilds``
+count as the reference's do.
 
 An enrichment stage (``core/enrich.py``, ``set_enrichment``) scores each
 join group's candidate slots between the join and ``deliver_all`` on fused
 runs with delivery and drops the lowest-scored pairs past its per-channel
 budget (counted in ``DeliveryStats.ranked_*``); its ``identity`` is stamped
 into every executed plan, so rings and stream buckets key on the scorer.
-
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item porting it: spatial cohorts (``subscribe_users``, item 11) and the
-dispatch/sync split (``dispatch``, ``dispatch_all`` and the resolved spill
-lane, item 13).
 """
 from __future__ import annotations
 
@@ -69,7 +74,7 @@ from repro_torch.core import subscriptions as subs
 from repro_torch.core.broker import (BrokerRegistry, DeliveryStats,
                                      FusedDelivery, RetryRing, RingCounters,
                                      deliver_all, empty_ring, fanout_sids,
-                                     pack_payloads)
+                                     pack_payloads, resolve_pair_sids)
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.predicates import (EQ, CompiledConditions,
                                          compile_conditions,
@@ -80,20 +85,15 @@ from repro_torch.device import DeviceLike, resolve_device
 I32 = torch.int32
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1, {item})")
-
-
 @dataclasses.dataclass
 class MaintenanceStats:
     """Counters for the epoch/delta maintenance machinery.
 
-    In the reference, ``traces`` counts jit traces of engine-owned device
-    functions. Eager PyTorch has no traces, so in this port it stays 0;
-    what it counts here is left to the churn slice (ROADMAP Queue 1, item
-    11). ``rebuilds`` counts the fused path's stacked-cache rebuilds;
-    ``patches`` stays 0 until in-place patching is ported (item 11)."""
+    ``rebuilds`` counts full stacked-cache rebuilds and ``patches`` in-place
+    delta patch applications (one per patched channel), as in the
+    reference. The reference's ``traces`` counts jit traces; eager PyTorch
+    has none, so here it is 0 by construction. Steady-state churn shows
+    ``patches`` advancing while ``rebuilds`` stays flat."""
 
     traces: int = 0
     rebuilds: int = 0
@@ -106,6 +106,59 @@ class MaintenanceStats:
         return MaintenanceStats(self.traces - prior.traces,
                                 self.rebuilds - prior.rebuilds,
                                 self.patches - prior.patches)
+
+
+class UserCohort:
+    """Stable-slot set of global user ids subscribed to ONE spatial channel.
+
+    Slot index == row in that channel's stacked user set (and the pair
+    target index its results carry), so cohort churn patches device rows in
+    place exactly like the Aggregator's group slots; freed slots are reused
+    (last freed, first reused), never leaked into padded capacity."""
+
+    def __init__(self):
+        self._uids: List[int] = []          # per slot; -1 when free
+        self._slot: Dict[int, int] = {}     # live uid -> slot
+        self._free: List[int] = []
+
+    @property
+    def num_slots(self) -> int:
+        return len(self._uids)
+
+    @property
+    def num_users(self) -> int:
+        return len(self._slot)
+
+    def add(self, uids: np.ndarray) -> set:
+        """Attach users; returns the slots touched (already-present ids are
+        no-ops)."""
+        touched = set()
+        for u in np.asarray(uids, dtype=np.int32).ravel().tolist():
+            if u in self._slot:
+                continue
+            if self._free:
+                s = self._free.pop()
+                self._uids[s] = u
+            else:
+                s = len(self._uids)
+                self._uids.append(u)
+            self._slot[u] = s
+            touched.add(s)
+        return touched
+
+    def remove(self, uids: np.ndarray) -> set:
+        touched = set()
+        for u in np.asarray(uids, dtype=np.int32).ravel().tolist():
+            s = self._slot.pop(u, None)
+            if s is not None:
+                self._uids[s] = -1
+                self._free.append(s)
+                touched.add(s)
+        return touched
+
+    def slot_uids(self) -> np.ndarray:
+        """(num_slots,) int32 uid per slot, -1 holes."""
+        return np.asarray(self._uids, dtype=np.int32).reshape(-1)
 
 
 @dataclasses.dataclass
@@ -121,11 +174,18 @@ class ChannelState:
     last_exec_size: int = 0
     executions: int = 0
     # ``epoch`` is a total order over this channel's subscription state:
-    # bumped on EVERY control-plane change; it keys spill staleness.
-    # ``delta_log`` holds the (epoch, GroupDelta) records that in-place
-    # patching of the stacked caches will consume (item 11).
+    # bumped on EVERY control-plane change; it keys spill staleness and the
+    # epoch-tracked stacked caches. ``delta_log`` holds the (epoch,
+    # GroupDelta) records a cache at epoch e applies to catch up; any gap
+    # (log overflow, out-of-band mutation) rebuilds that cache instead.
     epoch: int = 0
     delta_log: Deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=64))
+    # spatial channels: explicit subscriber cohort (None = every user), with
+    # its own epoch and delta log of touched slots
+    cohort: Optional[UserCohort] = None
+    user_epoch: int = 0
+    user_delta_log: Deque = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=64))
     # device TargetArrays + host group/flat views, cached per channel and
     # dropped whenever the subscription set changes
@@ -137,16 +197,30 @@ class ChannelState:
     # device sID tables by pair-target layout, for drains and
     # ``fused_sids_table`` (uploaded once per epoch)
     _sid_tables: Dict = dataclasses.field(default_factory=dict)
+    # a cohort channel's device (locs, brokers, slot->uid table), keyed by
+    # (user_epoch, user version)
+    _cohort_users: Optional[Tuple] = None
 
     def note_change(self) -> None:
-        """Advance the epoch and log the aggregator's accumulated delta."""
+        """Advance the epoch and log the aggregator's accumulated delta so
+        the stacked caches can patch in place instead of rebuilding."""
         delta = self.aggregator.take_delta()
         self.epoch += 1
         self.delta_log.append((self.epoch, delta))
         self._drop_host_caches()
 
+    def note_user_change(self, touched_slots: set) -> None:
+        """Cohort churn: slots remap, so spatial pair spills go stale (epoch
+        bump) and the stacked user-set cache gets a patchable delta."""
+        self.epoch += 1
+        self.user_epoch += 1
+        self.user_delta_log.append((self.user_epoch,
+                                    frozenset(touched_slots)))
+        self._drop_host_caches()
+
     def invalidate_targets(self) -> None:
-        """Out-of-band invalidation (no delta recorded)."""
+        """Out-of-band invalidation (no delta recorded): every epoch-tracked
+        cache sees the gap and rebuilds."""
         self.aggregator.take_delta()
         self.epoch += 1
         self._drop_host_caches()
@@ -156,6 +230,7 @@ class ChannelState:
         self._groups = self._flat = None
         self._host_targets = {}
         self._sid_tables = {}
+        self._cohort_users = None
 
 
 @dataclasses.dataclass
@@ -164,8 +239,8 @@ class _GroupCache:
 
     Capacity-padded (tmax slots / dmax domain / mmax fan-out / cap members)
     to shared power-of-two buckets; -1 / 0 padding never forms a valid pair.
-    ``epochs`` records the per-channel subscription epoch the tensors
-    reflect: any move rebuilds the entry from the host."""
+    Group deltas patch rows of these tensors in place, and ``epochs``
+    records the per-channel subscription epoch they reflect."""
 
     names: Tuple[str, ...]
     aggregated: bool
@@ -182,16 +257,23 @@ class _GroupCache:
 
 @dataclasses.dataclass
 class _SpatialCache:
-    """Stacked per-channel user sets of one spatial join group: every
-    channel serves the global user table (cohorts are not ported), padded
-    to a power of two at the far sentinel; rebuilt when
-    ``set_user_locations`` moves the user version."""
+    """Epoch-tracked stacked per-channel user sets of one spatial join
+    group; cohort deltas patch slot rows in place. ``identity`` is True
+    when every channel serves the full global user set: delivery then uses
+    the 0-width identity fanout."""
 
     names: Tuple[str, ...]
     user_version: int
+    cohorted: Tuple[bool, ...]
+    epochs: List[int]               # per-channel user_epoch reflected
     ub: int
     locs: torch.Tensor              # (C, ub, 2) float32, -FAR holes
     brokers: torch.Tensor           # (C, ub) int32
+    uids: torch.Tensor              # (C, ub) int32 global uid per slot, -1 holes
+
+    @property
+    def identity(self) -> bool:
+        return not any(self.cohorted)
 
 
 class SpillQueue:
@@ -423,8 +505,11 @@ class ExecutionReport:
 
 @dataclasses.dataclass
 class _PendingGroup:
-    """One executed plan-group awaiting its host half: the group's outputs
-    (device tensors), layouts and epoch snapshots for SpillQueue tagging."""
+    """One dispatched plan-group awaiting its host half: the group's outputs
+    (device tensors, possibly still being computed), layouts and
+    dispatch-time epoch snapshots for SpillQueue tagging, and, when spills
+    are resolved, clones of the dispatch-time stacked sID tables: a later
+    dispatch patches the live tables in place before this group syncs."""
 
     plan: plans.ChannelPlan
     param_chs: List
@@ -439,6 +524,8 @@ class _PendingGroup:
     t0: float
     p_epochs: List[int]
     s_epochs: List[int]
+    p_sids: Optional[torch.Tensor] = None
+    s_sids: Optional[torch.Tensor] = None
 
 
 class BADEngine:
@@ -501,6 +588,10 @@ class BADEngine:
         self.user_locations = torch.zeros((1, 2), dtype=torch.float32,
                                           device=self.device)
         self.user_brokers = torch.zeros((1,), dtype=I32, device=self.device)
+        # host copies of the user tables: cohort rows are gathered on the
+        # host without reading the device back
+        self._user_host = (np.zeros((1, 2), np.float32),
+                           np.zeros((1,), np.int32))
         self.now = 0
         # host mirror of dataset.size, maintained by ``ingest``: row ids and
         # watermarks are derived on the host, never read back from the device
@@ -644,20 +735,49 @@ class BADEngine:
         return int(params.size)
 
     def subscribe_users(self, channel: str, user_ids: np.ndarray) -> int:
-        raise _not_ported("spatial cohorts (subscribe_users)", "item 11")
+        """Attach users to a spatial channel's cohort. The first call
+        converts the channel from the all-users semantics to an explicit
+        cohort holding exactly the given ids. Returns the number newly
+        attached."""
+        st = self.channels[channel]
+        if st.spec.join != "spatial":
+            raise ValueError(f"{channel} is not a spatial channel")
+        uids = np.asarray(user_ids, dtype=np.int32).ravel()
+        nu = self.user_locations.shape[0]
+        if uids.size and (int(uids.min()) < 0 or int(uids.max()) >= nu):
+            raise ValueError(f"user ids out of [0, {nu})")
+        created = st.cohort is None
+        if created:
+            st.cohort = UserCohort()
+        touched = st.cohort.add(uids)
+        if touched or created:
+            # creation alone changes semantics (all users -> explicit
+            # cohort) and remaps the spill target space: bump even when no
+            # id was new
+            st.note_user_change(touched)
+        return len(touched)
 
     def unsubscribe_users(self, channel: str, user_ids: np.ndarray) -> int:
-        raise _not_ported("spatial cohorts (unsubscribe_users)", "item 11")
+        """Detach users from a spatial channel's cohort (no-op for ids not
+        in it). Returns the number detached."""
+        st = self.channels[channel]
+        if st.cohort is None:
+            return 0
+        touched = st.cohort.remove(np.asarray(user_ids, dtype=np.int32))
+        if touched:
+            st.note_user_change(touched)
+        return len(touched)
 
     def set_user_locations(self, locations: np.ndarray,
                            brokers: Optional[np.ndarray] = None) -> None:
-        locations = np.asarray(locations, dtype=np.float32)
-        self.user_locations = torch.as_tensor(
-            locations, device=self.device).contiguous()
+        locations = np.array(locations, dtype=np.float32)
         if brokers is None:
             brokers = np.zeros((locations.shape[0],), dtype=np.int32)
-        self.user_brokers = torch.as_tensor(np.asarray(brokers, np.int32),
-                                            device=self.device)
+        brokers = np.array(brokers, dtype=np.int32)
+        self._user_host = (locations, brokers)
+        self.user_locations = torch.as_tensor(
+            locations, device=self.device).contiguous()
+        self.user_brokers = torch.as_tensor(brokers, device=self.device)
         self._user_version += 1      # the stacked user sets rebuild
 
     # ------------------------------------------------------------------
@@ -774,6 +894,70 @@ class BADEngine:
             st._flat = subs.flatten_groups(groups)
         return st._flat
 
+    def _cohort_rows(self, st: ChannelState, slots=None):
+        """Host (locs, brokers, uids) rows for a cohort channel's slots:
+        holes (and uids past the current user table) sit at the far
+        sentinel / -1, so they can never match or fan out."""
+        from repro_torch.kernels.spatial_match.ops import FAR
+        uids = st.cohort.slot_uids()
+        if slots is not None:
+            uids = uids[slots]
+        locs_h, brokers_h = self._user_host
+        ok = (uids >= 0) & (uids < locs_h.shape[0])
+        safe = np.where(ok, uids, 0)
+        locs = np.where(ok[:, None], locs_h[safe], -FAR).astype(np.float32)
+        brokers = np.where(ok, brokers_h[safe], 0).astype(np.int32)
+        return locs, brokers, np.where(ok, uids, -1).astype(np.int32)
+
+    def _cohort_device(self, st: ChannelState) -> Tuple[torch.Tensor,
+                                                        torch.Tensor,
+                                                        torch.Tensor]:
+        """One cohort channel's device (locs, brokers, slot->uid table),
+        cached on the ChannelState by (user_epoch, user version): the
+        per-channel join and the delivery and drain paths read the same
+        upload."""
+        key = (st.user_epoch, self._user_version)
+        if st._cohort_users is not None and st._cohort_users[0] == key:
+            return st._cohort_users[1]
+        locs, brokers, uids = self._cohort_rows(st)
+        n = uids.shape[0]
+        both = self._upload(np.concatenate(
+            [locs.reshape(-1).view(np.int32), brokers, uids]))
+        val = (both[:2 * n].view(torch.float32).reshape(n, 2),
+               both[2 * n:3 * n], both[3 * n:][:, None])
+        st._cohort_users = (key, val)
+        return val
+
+    def _channel_users(self, st: ChannelState) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+        """One channel's user set for the per-channel spatial join: the
+        global tables without a cohort, else the cohort's slot-shaped rows
+        (holes at the far sentinel, so slot indices, the pair targets, line
+        up with the fused stacked rows)."""
+        if st.spec.join != "spatial" or st.cohort is None:
+            return self.user_locations, self.user_brokers
+        return self._cohort_device(st)[:2]
+
+    def _spatial_sids_table(self, st: ChannelState) -> Optional[torch.Tensor]:
+        """Slot->uid delivery table of a cohort spatial channel ((U, 1), -1
+        holes); None selects the identity fanout (no cohort: targets
+        already ARE global user ids)."""
+        if st.cohort is None:
+            return None
+        return self._cohort_device(st)[2]
+
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """One host->device copy of an int32 buffer. On a CUDA engine the
+        buffer is staged in freshly allocated pinned memory and copied
+        without blocking the host; PyTorch's pinned allocator records the
+        copy on the stream and reuses the block only after it completed."""
+        host = np.ascontiguousarray(host, dtype=np.int32)
+        if self.device.type != "cuda" or not host.size:
+            return torch.from_numpy(host.copy()).to(self.device)
+        staged = torch.empty(host.shape, dtype=I32, pin_memory=True)
+        staged.numpy()[...] = host
+        return staged.to(self.device, non_blocking=True)
+
     def group_sids_array(self, channel: str, aggregated: bool) -> torch.Tensor:
         st = self.channels[channel]
         if aggregated:
@@ -815,8 +999,8 @@ class BADEngine:
             if plans.backend_family(backend) == "pallas":
                 from repro_torch.kernels.spatial_match import ops as sm_ops
                 spatial_fn = sm_ops.spatial_match
-            return plans.join_spatial(ds, cand, self.user_locations,
-                                      self.user_brokers, spec.spatial_radius,
+            return plans.join_spatial(ds, cand, *self._channel_users(st),
+                                      spec.spatial_radius,
                                       spec.payload_bytes, num_brokers,
                                       spatial_fn)
         return plans.join_param_targets(
@@ -838,8 +1022,9 @@ class BADEngine:
         stream = plans.compact_candidates(cand1, stream_cap)
         payload = torch.tensor([spec.payload_bytes], dtype=I32, device=dev)
         if spec.join == "spatial":
+            locs, ubrokers = self._channel_users(st)
             sj = plans.join_spatial_stream(
-                ds, stream, self.user_locations[None], self.user_brokers[None],
+                ds, stream, locs[None], ubrokers[None],
                 torch.tensor([spec.spatial_radius], dtype=torch.float32,
                              device=dev), payload, num_brokers)
         else:
@@ -871,10 +1056,18 @@ class BADEngine:
         res1 = plans.ChannelResult(*(t[None] for t in result))
         counts = None
         if st.spec.join == "spatial":
-            # spatial targets ARE end-user ids; a 0-wide table selects the
-            # brokers' identity fanout
-            sids = torch.zeros((1, 0), dtype=I32, device=self.device)
-            tb = self.user_brokers[None]
+            tbl = self._spatial_sids_table(st)
+            if tbl is None:
+                # spatial targets ARE end-user ids; a 0-wide table selects
+                # the brokers' identity fanout
+                sids = torch.zeros((1, 0), dtype=I32, device=self.device)
+                tb = self.user_brokers[None]
+            else:
+                # cohort channel: targets are cohort SLOTS; the slot->uid
+                # table maps them to global user ids, brokers follow the
+                # cohort rows
+                sids = tbl[None]
+                tb = self._channel_users(st)[1][None]
         else:
             sids = self.group_sids_array(st.spec.name, aggregated)[None]
             targets = self._targets(st, aggregated)
@@ -890,7 +1083,8 @@ class BADEngine:
 
     def _spill_and_stats(self, chs: List[ChannelState], layout,
                          h: Dict[str, np.ndarray],
-                         epochs: Optional[List[int]] = None
+                         epochs: Optional[List[int]] = None,
+                         resolve_tables: Optional[torch.Tensor] = None
                          ) -> Dict[str, DeliveryStats]:
         """Host side of a delivery, on its host copy ``h``
         (``_delivery_tensors``): push the captured flat spill streams into
@@ -900,7 +1094,11 @@ class BADEngine:
         lane with the target index space the producing join used (False =
         flat rows, True = compacted group rows, "slot" / "flat_slot" =
         aggregator slot rows); ``epochs`` stamps pair entries with the
-        execution-time epochs instead of the live ones. ``h`` may carry the
+        dispatch-time epochs instead of the live ones. ``resolve_tables``
+        (the dispatch-time stacked sID tables, on the device) switches pair
+        capture to the epoch-free RESOLVED lane: each spilled pair's fanout
+        is resolved here, against the table its producing call joined, so
+        deferred batched drains cannot go stale. ``h`` may carry the
         enrichment stage's per-channel ``ranked_pairs`` / ``ranked_sids``:
         delivery saw the pruned result, so those pairs re-enter as counted
         drops."""
@@ -921,9 +1119,15 @@ class BADEngine:
         for i, st in enumerate(chs):
             name = st.spec.name
             sel = pchan == i
-            epoch = st.epoch if epochs is None else epochs[i]
-            spilled_p = self.spill.push_pairs(name, layout, prows[sel],
-                                              ptgts[sel], epoch)
+            if resolve_tables is not None:
+                rows_i, tgts_i = prows[sel], ptgts[sel]
+                spilled_p = self.spill.push_resolved(
+                    name, rows_i, tgts_i,
+                    _resolve_rows(resolve_tables[i], tgts_i))
+            else:
+                epoch = st.epoch if epochs is None else epochs[i]
+                spilled_p = self.spill.push_pairs(name, layout, prows[sel],
+                                                  ptgts[sel], epoch)
             spilled_s = self.spill.push_sids(name, svals[schan == i])
             ov_p = int(pack_p[i] - pack_d[i])
             ov_s = int(fan_p[i] - fan_d[i])
@@ -1028,14 +1232,32 @@ class BADEngine:
     def _group_state(self, chs: List[ChannelState],
                      aggregated: bool) -> _GroupCache:
         """The fused path's stacked group state for one param join group,
-        keyed by layout and membership, rebuilt from the host whenever any
-        channel's epoch moved (the reference patches it in place; item
-        11)."""
+        keyed by layout and membership and maintained by the epoch/delta
+        protocol. Shapes are capacity-padded to shared power-of-two buckets
+        (tmax slot rows / real max domain / mmax join fan-out); -1 / 0
+        padding never forms a valid pair. On an epoch move the entry is
+        PATCHED in place from the channels' group deltas (O(delta) host work
+        and one host->device copy per changed channel); it rebuilds only
+        when padded capacity is exceeded, a delta is unavailable (log gap,
+        whole-table delta, out-of-band mutation), the channel set changed,
+        or the engine runs with ``incremental=False``."""
         names = tuple(st.spec.name for st in chs)
         key = ("groups", aggregated, names)
         cache = self._stacked_cache.get(key)
-        if cache is not None and cache.epochs == [st.epoch for st in chs]:
-            return cache
+        if cache is not None:
+            if cache.epochs == [st.epoch for st in chs]:
+                return cache
+            if self.incremental:
+                if aggregated:
+                    patches = self._group_patches(cache, chs)
+                    if patches is not None:
+                        self._apply_group_patches(cache, chs, patches)
+                        return cache
+                else:
+                    patches = self._flat_patches(cache, chs)
+                    if patches is not None:
+                        self._apply_flat_patches(cache, chs, patches)
+                        return cache
         cache = self._build_group_state(chs, aggregated)
         self._stacked_put(key, cache)
         return cache
@@ -1131,40 +1353,263 @@ class BADEngine:
                            torch.as_tensor(domains, device=dev),
                            torch.as_tensor(sids, device=dev))
 
+    @staticmethod
+    def _delta_union(st_log, cached_e: int, now_e: int):
+        """The delta records of epochs (cached_e, now_e] from a channel's
+        log, or None on a gap."""
+        if now_e - cached_e > len(st_log):
+            return None              # gap certain: don't materialize it
+        need = set(range(cached_e + 1, now_e + 1))
+        out = [d for e, d in st_log if e in need]
+        return out if len(out) == len(need) else None
+
+    def _group_patches(self, cache: _GroupCache, chs: List[ChannelState]):
+        """Per-channel (slots, params) patch sets covering every epoch since
+        the cache's snapshot, or None if any channel must rebuild (delta
+        gap, whole-table delta, or padded capacity exceeded)."""
+        out = []
+        for st, cached_e in zip(chs, cache.epochs):
+            if st.epoch == cached_e:
+                out.append(None)
+                continue
+            deltas = self._delta_union(st.delta_log, cached_e, st.epoch)
+            if deltas is None or any(d.full for d in deltas):
+                return None
+            slots, params_t = set(), set()
+            for d in deltas:
+                slots |= d.slots
+                params_t |= d.params
+            agg = st.aggregator
+            if agg.num_slots > cache.tmax or agg.cap != cache.cap:
+                return None
+            if any(len(agg.param_slots(p)) > cache.mmax for p in params_t):
+                return None
+            out.append((slots, params_t))
+        return out
+
+    def _apply_group_patches(self, cache: _GroupCache,
+                             chs: List[ChannelState], patches) -> None:
+        """Per changed channel: the touched slot rows and by-param rows are
+        re-read from the aggregator (current content), packed into one int32
+        buffer, uploaded once and written in place with ``index_copy_``
+        (exact-length index tensors: the sorted unique slots and params)."""
+        t = cache.targets
+        for ci, (st, patch) in enumerate(zip(chs, patches)):
+            if patch is None:
+                continue
+            slots, params_t = patch
+            agg = st.aggregator
+            sl = np.sort(np.fromiter(slots, np.int64, len(slots)))
+            pl = np.asarray(sorted(params_t), np.int64)
+            k, m = len(sl), len(pl)
+            sl_p, sl_b, sl_c, sl_s = agg.slot_rows(sl)
+            p_rows = np.full((m, cache.mmax), -1, np.int32)
+            p_cnt = np.zeros((m,), np.int32)
+            for j, p in enumerate(pl.tolist()):
+                row = agg.param_slots(p)
+                p_rows[j, :len(row)] = row
+                p_cnt[j] = len(row)
+            p_mask = (st.user_params.refcount[pl] > 0).astype(np.int32)
+            dev = self._upload(np.concatenate(
+                [sl, sl_p, sl_b, sl_c, sl_s.reshape(-1), pl,
+                 p_rows.reshape(-1), p_cnt, p_mask]))
+            parts = _split(dev, (k, k, k, k, k * cache.cap, m,
+                                 m * cache.mmax, m, m))
+            si, pi = parts[0].long(), parts[5].long()
+            t.params[ci].index_copy_(0, si, parts[1])
+            t.brokers[ci].index_copy_(0, si, parts[2])
+            t.counts[ci].index_copy_(0, si, parts[3])
+            cache.sids[ci].index_copy_(0, si, parts[4].view(k, cache.cap))
+            t.by_param[ci].index_copy_(0, pi, parts[6].view(m, cache.mmax))
+            t.by_param_count[ci].index_copy_(0, pi, parts[7])
+            cache.up_masks[ci].index_copy_(0, pi, parts[8].bool())
+            self.maintenance.patches += 1
+        cache.epochs = [st.epoch for st in chs]
+
+    def _flat_patches(self, cache: _GroupCache, chs: List[ChannelState]):
+        """Per-channel (flat slots, join-map cells, params) patch sets
+        covering every epoch since the cache's snapshot, or None if any
+        channel must rebuild (delta gap, whole-table delta, or padded
+        capacity exceeded)."""
+        out = []
+        for st, cached_e in zip(chs, cache.epochs):
+            if st.epoch == cached_e:
+                out.append(None)
+                continue
+            deltas = self._delta_union(st.delta_log, cached_e, st.epoch)
+            if deltas is None or any(d.full for d in deltas):
+                return None
+            slots, cells, params_t = set(), set(), set()
+            for d in deltas:
+                slots |= d.flat_slots
+                cells |= d.flat_cells
+                params_t |= d.params
+            agg = st.aggregator
+            if agg.num_flat_slots > cache.tmax:
+                return None
+            if any(agg.flat_row_extent(p) > cache.mmax for p in params_t):
+                return None
+            out.append((slots, cells, params_t))
+        return out
+
+    def _apply_flat_patches(self, cache: _GroupCache,
+                            chs: List[ChannelState], patches) -> None:
+        """Per changed channel: the touched flat-slot rows are re-read from
+        the aggregator's flat table and the touched join-map CELLS
+        ((param, position), stable under churn) written in place, so a
+        patch costs O(delta) cells, never whole by-param rows. One upload a
+        channel; cells outside the padded map are dropped, as the
+        reference's scatter drops them."""
+        t = cache.targets
+        for ci, (st, patch) in enumerate(zip(chs, patches)):
+            if patch is None:
+                continue
+            slots, cells, params_t = patch
+            agg = st.aggregator
+            sl = np.sort(np.fromiter(slots, np.int64, len(slots)))
+            sl_p, sl_b, sl_c, sl_s = agg.flat_slot_rows(sl)
+            c_p, c_pos, c_val = agg.flat_cell_rows(sorted(cells))
+            keep = (c_p < cache.dmax) & (c_pos < cache.mmax)
+            c_p, c_pos, c_val = c_p[keep], c_pos[keep], c_val[keep]
+            el = np.asarray(sorted(params_t), np.int64)
+            e_cnt = np.asarray([agg.flat_row_extent(p) for p in el.tolist()],
+                               np.int32)
+            e_mask = (st.user_params.refcount[el] > 0).astype(np.int32)
+            k, c, m = len(sl), len(c_p), len(el)
+            dev = self._upload(np.concatenate(
+                [sl, sl_p, sl_b, sl_c, sl_s, c_p, c_pos, c_val, el,
+                 e_cnt.reshape(-1), e_mask]))
+            parts = _split(dev, (k, k, k, k, k, c, c, c, m, m, m))
+            si, ei = parts[0].long(), parts[8].long()
+            t.params[ci].index_copy_(0, si, parts[1])
+            t.brokers[ci].index_copy_(0, si, parts[2])
+            t.counts[ci].index_copy_(0, si, parts[3])
+            cache.sids[ci].index_copy_(0, si, parts[4][:, None])
+            t.by_param[ci].index_put_((parts[5].long(), parts[6].long()),
+                                      parts[7])
+            t.by_param_count[ci].index_copy_(0, ei, parts[9])
+            cache.up_masks[ci].index_copy_(0, ei, parts[10].bool())
+            self.maintenance.patches += 1
+        cache.epochs = [st.epoch for st in chs]
+
     def _spatial_state(self, chs: List[ChannelState]) -> _SpatialCache:
-        """Stacked per-channel user sets of one spatial join group, rebuilt
-        when ``set_user_locations`` moved the user version."""
+        """Stacked per-channel user sets of one spatial join group,
+        maintained by the same epoch/delta protocol as the group caches:
+        cohort churn patches slot rows in place; a ``set_user_locations``
+        (user-version bump), cohort creation, capacity overflow or a delta
+        gap rebuilds."""
         names = tuple(st.spec.name for st in chs)
+        cohorted = tuple(st.cohort is not None for st in chs)
         cache = self._stacked_cache.get(("spatial", names))
-        if cache is not None and cache.user_version == self._user_version:
-            return cache
+        if cache is not None and cache.user_version == self._user_version \
+                and cache.cohorted == cohorted:
+            if cache.epochs == [st.user_epoch for st in chs]:
+                return cache
+            if self.incremental:
+                patches = self._spatial_patches(cache, chs)
+                if patches is not None:
+                    self._apply_spatial_patches(cache, chs, patches)
+                    return cache
         cache = self._build_spatial_state(chs)
         self._stacked_put(("spatial", names), cache)
         return cache
 
     def _build_spatial_state(self, chs: List[ChannelState]) -> _SpatialCache:
+        """Every channel's user rows, padded to a shared power of two at the
+        far sentinel: the global table for a channel without a cohort, the
+        cohort's slot rows otherwise; one upload."""
         from repro_torch.kernels.spatial_match.ops import FAR
         self.maintenance.rebuilds += 1
-        u = self.user_locations.shape[0]
-        ub = _pow2_bucket(u, 3)
+        locs_h, brokers_h = self._user_host
+        u = locs_h.shape[0]
+        rows = [u if st.cohort is None else max(st.cohort.num_slots, 1)
+                for st in chs]
+        ub = _pow2_bucket(max(rows), 3)
         n = len(chs)
-        locs = torch.full((n, ub, 2), -FAR, dtype=torch.float32,
-                          device=self.device)
-        brokers = torch.zeros((n, ub), dtype=I32, device=self.device)
-        locs[:, :u] = self.user_locations
-        brokers[:, :u] = self.user_brokers
-        return _SpatialCache(tuple(st.spec.name for st in chs),
-                             self._user_version, ub, locs, brokers)
+        locs = np.full((n, ub, 2), -FAR, np.float32)
+        brokers = np.zeros((n, ub), np.int32)
+        uids = np.full((n, ub), -1, np.int32)
+        for i, st in enumerate(chs):
+            if st.cohort is None:
+                locs[i, :u] = locs_h
+                brokers[i, :u] = brokers_h
+                uids[i, :u] = np.arange(u, dtype=np.int32)
+            else:
+                k = st.cohort.num_slots
+                if k:
+                    locs[i, :k], brokers[i, :k], uids[i, :k] = \
+                        self._cohort_rows(st)
+        dev = self._upload(np.concatenate(
+            [locs.reshape(-1).view(np.int32), brokers.reshape(-1),
+             uids.reshape(-1)]))
+        parts = _split(dev, (n * ub * 2, n * ub, n * ub))
+        return _SpatialCache(
+            tuple(st.spec.name for st in chs), self._user_version,
+            tuple(st.cohort is not None for st in chs),
+            [st.user_epoch for st in chs], ub,
+            parts[0].view(torch.float32).view(n, ub, 2),
+            parts[1].view(n, ub), parts[2].view(n, ub))
+
+    def _spatial_patches(self, cache: _SpatialCache,
+                         chs: List[ChannelState]):
+        """Per-channel touched cohort slots since the cache's snapshot, or
+        None if any channel must rebuild (gap, no cohort, or more slots than
+        the padded rows)."""
+        out = []
+        for st, cached_e in zip(chs, cache.epochs):
+            if st.user_epoch == cached_e:
+                out.append(None)
+                continue
+            deltas = self._delta_union(st.user_delta_log, cached_e,
+                                       st.user_epoch)
+            if deltas is None or st.cohort is None \
+                    or st.cohort.num_slots > cache.ub:
+                return None
+            out.append(set().union(*deltas))
+        return out
+
+    def _apply_spatial_patches(self, cache: _SpatialCache,
+                               chs: List[ChannelState], patches) -> None:
+        """Per changed channel: the touched cohort slot rows (locations,
+        brokers, uids) in one upload, written in place."""
+        for ci, (st, slots) in enumerate(zip(chs, patches)):
+            if slots is None:
+                continue
+            sl = np.asarray(sorted(slots), np.int32)
+            k = len(sl)
+            locs, brokers, uids = self._cohort_rows(st, sl)
+            dev = self._upload(np.concatenate(
+                [sl, locs.reshape(-1).view(np.int32), brokers, uids]))
+            parts = _split(dev, (k, 2 * k, k, k))
+            si = parts[0].long()
+            cache.locs[ci].index_copy_(
+                0, si, parts[1].view(torch.float32).view(k, 2))
+            cache.brokers[ci].index_copy_(0, si, parts[2])
+            cache.uids[ci].index_copy_(0, si, parts[3])
+            self.maintenance.patches += 1
+        cache.epochs = [st.user_epoch for st in chs]
+
+    def _stacked_spatial_sids(self, chs: List[ChannelState]) -> torch.Tensor:
+        """Delivery sID tables of the spatial group: the 0-width identity
+        fanout while every channel serves all users (targets ARE end-user
+        ids); with cohorts, a (C, ub, 1) slot->uid view of the cache, so
+        delivered sIDs are GLOBAL user ids, not cohort slots."""
+        c = self._spatial_state(chs)
+        if c.identity:
+            return torch.zeros((len(chs), 0), dtype=I32, device=self.device)
+        return c.uids[:, :, None]
 
     def fused_sids_table(self, name: str, aggregated: bool) -> torch.Tensor:
         """The sID table matching the FUSED path's pair-target space for one
         channel: slot tables on an incremental engine (group slots when
         aggregated, flat per-subscription slots otherwise), the compacted
-        build tables on a rebuild engine, and the 0-width identity fanout
-        for spatial channels."""
+        build tables on a rebuild engine, and the cohort slot->uid table (or
+        the 0-width identity fanout) for spatial channels."""
         st = self.channels[name]
         if st.spec.join == "spatial":
-            return torch.zeros((0,), dtype=I32, device=self.device)
+            tbl = self._spatial_sids_table(st)
+            return (torch.zeros((0,), dtype=I32, device=self.device)
+                    if tbl is None else tbl)
         if self.incremental:
             return self._sid_table(st, "slot" if aggregated else "flat_slot")
         return self._sid_table(st, aggregated)
@@ -1199,9 +1644,8 @@ class BADEngine:
                 "last_size": [st.last_exec_size for st in chs],
                 "epochs": [st.epoch for st in chs],
                 "radius": radii.view(np.int32)}
-        dev = torch.as_tensor(
-            np.stack([np.asarray(v, np.int32) for v in cols.values()]),
-            device=self.device)
+        dev = self._upload(
+            np.stack([np.asarray(v, np.int32) for v in cols.values()]))
         out = {k: dev[i] for i, k in enumerate(cols)}
         out["radius"] = out["radius"].view(torch.float32)
         return out
@@ -1404,25 +1848,53 @@ class BADEngine:
 
     def execute(self, request: plans.ExecutionRequest
                 ) -> Dict[str, ExecutionReport]:
-        """Run one ``ExecutionRequest``: every plan-group's fused call, then
-        the watermark advance, then each group's host half (one bulk
-        device->host copy per join group, SpillQueue pushes, conserving
-        DeliveryStats), in the reference's order."""
-        if request.resolve_spills:
-            raise _not_ported("the resolved spill lane "
-                              "(ExecutionRequest.resolve_spills)", "item 13")
-        reports: Dict[str, ExecutionReport] = {}
-        for g in self._execute_groups(request):
-            self._materialize_group(g, reports)
-        return reports
+        """Run one ``ExecutionRequest`` synchronously: ``dispatch(request)``
+        then ``sync()``, the single execution surface every facade
+        (``execute_all``, ``dispatch_all``) routes through."""
+        return self.dispatch(request).sync()
 
-    def _execute_groups(self, request: plans.ExecutionRequest
-                        ) -> List[_PendingGroup]:
-        """Resolve the request to one plan per requested channel, partition
-        the channels into plan-groups (first-channel order, so a
-        homogeneous resolution is one group), flush the rings of groups no
-        longer executing (full-engine requests only), run every group, and
-        advance the watermarks."""
+    def dispatch_all(self, flags: Optional[plans.ExecutionFlags] = None,
+                     advance: bool = True, timed: bool = False,
+                     deliver: bool = False,
+                     resolve_spills: bool = False):
+        """``dispatch`` under the keyword surface of ``execute_all``
+        (``flags`` forces one homogeneous plan; None runs the per-channel
+        assignments)."""
+        return self.dispatch(plans.ExecutionRequest(
+            flags=flags, advance=advance, timed=timed, deliver=deliver,
+            resolve_spills=resolve_spills))
+
+    def dispatch(self, request: plans.ExecutionRequest):
+        """Enqueue every plan-group's work on the engine's stream WITHOUT
+        reading any output back: returns a ``runtime.PendingExecution``
+        whose ``sync()`` materializes the per-channel reports (one bulk
+        device->host copy per join group) and runs the host half of the
+        delivery accounting (SpillQueue pushes, conserving DeliveryStats).
+
+        The request resolves to one plan per requested channel, and
+        channels sharing a plan run as one plan-group (first-channel order,
+        so a homogeneous resolution is one group). With an enrichment stage
+        attached and ``deliver=True`` every plan is stamped with the
+        stage's identity. Everything the control plane sees happens AT
+        DISPATCH: stacked caches are patched, successor rings stored (device
+        tensors), watermarks advanced (in place, after the group's work on
+        the same stream) and ``last_exec_*`` moved, so back-to-back
+        dispatches pipeline and a deferred ``sync()`` reports exactly the
+        state its work was dispatched against.
+
+        ``resolve_spills`` captures overflowed pairs into the SpillQueue's
+        epoch-free RESOLVED lane, against clones of the dispatch-time
+        stacked sID tables taken here (the live tables are patched in place
+        by later dispatches): required when syncs are deferred across
+        churn.
+
+        A plan-group's host sync points, by design: the ``bad_index`` scan
+        mode reads the watermark deltas to bucket candidate shapes (one
+        read), and the compact backends read the live-candidate totals for
+        the stream capacity (one read). The per-group scalars, the patches
+        and the executed index rows are uploaded without blocking; a
+        cache rebuild uploads its tables with blocking copies."""
+        from repro_torch.core.runtime import PendingExecution
         deliver = request.deliver
         ordered = sorted(self.channels.values(), key=lambda s: s.index)
         if request.channels is not None:
@@ -1432,7 +1904,7 @@ class BADEngine:
             want = set(request.channels)
             ordered = [st for st in ordered if st.spec.name in want]
         if not ordered:
-            return []
+            return PendingExecution(self, [])
         forced = request.forced_plan(
             "pallas" if self.use_pallas else "oracle")
         # with a stage attached and delivery on, every executed plan carries
@@ -1463,26 +1935,28 @@ class BADEngine:
                                 tuple(st.spec.name for st in schs)))
             for k in [k for k in self._rings if k not in active]:
                 self._flush_ring(*self._rings.pop(k))
-        pending = [self._run_plan_group(plan, pchs, schs, request.timed,
-                                        deliver, use_ring)
+        pending = [self._dispatch_plan_group(plan, pchs, schs, request.timed,
+                                             deliver, use_ring,
+                                             request.resolve_spills)
                    for plan, (pchs, schs) in groups.items()]
         if request.advance:
             bidx.advance_watermarks(
                 self.index_state,
-                torch.as_tensor([st.index for st in ordered],
-                                device=self.device))
+                self._upload(np.asarray([st.index for st in ordered])))
             for st in ordered:
                 st.last_exec_ts = self.now
                 st.last_exec_size = self.size_host
                 st.executions += 1
-        return pending
+        return PendingExecution(self, pending)
 
-    def _run_plan_group(self, plan: plans.ChannelPlan,
-                        param_chs: List[ChannelState],
-                        spatial_chs: List[ChannelState], timed: bool,
-                        deliver: bool, use_ring: bool) -> _PendingGroup:
-        """Gather one plan-group's stacked inputs and rings, run it, and
-        store its successor rings."""
+    def _dispatch_plan_group(self, plan: plans.ChannelPlan,
+                             param_chs: List[ChannelState],
+                             spatial_chs: List[ChannelState], timed: bool,
+                             deliver: bool, use_ring: bool,
+                             resolve_spills: bool) -> _PendingGroup:
+        """Gather one plan-group's stacked inputs and rings (patching the
+        caches), enqueue its work, and store its successor rings; the
+        reports materialize later in ``_materialize_group``."""
         chans = param_chs + spatial_chs
         max_cand = self.max_candidates
         if plan.scan_mode == "bad_index":
@@ -1515,8 +1989,7 @@ class BADEngine:
             c = self._spatial_state(spatial_chs)
             s_in = self._group_scalars(spatial_chs)
             s_in.update(locs=c.locs, brokers=c.brokers,
-                        sids=torch.zeros((len(spatial_chs), 0), dtype=I32,
-                                         device=self.device))
+                        sids=self._stacked_spatial_sids(spatial_chs))
             if use_ring:
                 s_ring = self._ring_in(("spatial", plan, s_names), s_names,
                                        len(spatial_chs))
@@ -1530,6 +2003,14 @@ class BADEngine:
             self._sync()
             wall = time.perf_counter() - t0
         del_p, del_s = res[2], res[3]
+
+        def keep(inp):
+            # the resolved lane reads the dispatch-time sID table at sync,
+            # after later dispatches may have patched the live one in place
+            if inp is None or not (resolve_spills and deliver):
+                return None
+            return inp["sids"].clone()
+
         if use_ring:
             if param_chs:
                 self._rings[("param", plan, p_names)] = (
@@ -1543,7 +2024,8 @@ class BADEngine:
             s_layout=plan.aggregation,
             deliver=deliver, wall=wall, t0=t0,
             p_epochs=[st.epoch for st in param_chs],
-            s_epochs=[st.epoch for st in spatial_chs])
+            s_epochs=[st.epoch for st in spatial_chs],
+            p_sids=keep(p_in), s_sids=keep(s_in))
 
     def _materialize_group(self, g: _PendingGroup,
                            reports: Dict[str, ExecutionReport]) -> None:
@@ -1553,11 +2035,11 @@ class BADEngine:
         (``report.result`` holds per-channel views)."""
         res_p, res_s, del_p, del_s = g.res
         wall = g.wall
-        for chs, res, dlv, rank, layout, epochs in (
+        for chs, res, dlv, rank, layout, epochs, sids in (
                 (g.param_chs, res_p, del_p, g.ranks[0], g.p_layout,
-                 g.p_epochs),
+                 g.p_epochs, g.p_sids),
                 (g.spatial_chs, res_s, del_s, g.ranks[1], g.s_layout,
-                 g.s_epochs)):
+                 g.s_epochs, g.s_sids)):
             if not chs:
                 continue
             named = {"num_results": res.num_results,
@@ -1571,7 +2053,7 @@ class BADEngine:
             h = _host_arrays(named)
             if not wall:
                 wall = time.perf_counter() - g.t0
-            stats = (self._spill_and_stats(chs, layout, h, epochs)
+            stats = (self._spill_and_stats(chs, layout, h, epochs, sids)
                      if g.deliver else {})
             pay = noti = None
             if g.deliver and self.debug_delivery_buffers:
@@ -1693,7 +2175,7 @@ class BADEngine:
         drained_pairs = set()
         # resolved lane first: entries whose fanout was resolved against the
         # producing call's own table re-enter with their recorded sID rows
-        # as the table (filled only by the deferred-sync runtime, item 13)
+        # as the table, immune to churn between spill and drain
         for name in self.spill.resolved_keys():
             if name in drained_pairs:
                 continue
@@ -1744,7 +2226,9 @@ class BADEngine:
             elif len(rows):
                 res = self._synthetic_result(rows, tgts)
                 if st.spec.join == "spatial":
-                    sids = torch.zeros((0,), dtype=I32, device=dev)
+                    sids = self._spatial_sids_table(st)
+                    if sids is None:
+                        sids = torch.zeros((0,), dtype=I32, device=dev)
                 else:
                     sids = self._sid_table(st, layout)
                 payload, dlv, _ = pack_payloads(res, sids, pw,
@@ -1778,17 +2262,6 @@ class BADEngine:
                 DeliveryStats(0, 0, 0, delivered, respilled, 0),
                 notify=buf))
         return out
-
-    # ------------------------------------------------------------------
-    # paths of the reference engine that later slices port
-    # ------------------------------------------------------------------
-
-    def dispatch_all(self, *args, **kwargs):
-        raise _not_ported("the dispatch/sync split (dispatch_all)", "item 13")
-
-    def dispatch(self, *args, **kwargs):
-        raise _not_ported("the dispatch/sync split (dispatch)", "item 13")
-
 
 
 def _delivery_tensors(d: FusedDelivery) -> Dict[str, torch.Tensor]:
@@ -1824,6 +2297,29 @@ def _host_arrays(named: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         out[k] = a.astype(bool) if t.dtype == torch.bool else a
         at += n
     return out
+
+
+def _split(flat: torch.Tensor, sizes) -> List[torch.Tensor]:
+    """Consecutive views of one uploaded buffer."""
+    out, at = [], 0
+    for n in sizes:
+        out.append(flat[at:at + n])
+        at += n
+    return out
+
+
+def _resolve_rows(table: torch.Tensor, targets: np.ndarray) -> np.ndarray:
+    """``broker.resolve_pair_sids`` against one channel's device sID table,
+    copying only the rows the targets name to the host."""
+    targets = np.asarray(targets, np.int32)
+    if table.ndim != 2 or table.numel() == 0 or not len(targets):
+        if table.ndim == 2 and table.shape[1] and table.shape[0]:
+            return np.zeros((0, table.shape[1]), np.int32)
+        return resolve_pair_sids(np.empty(tuple(table.shape), np.int32),
+                                 targets)
+    safe = torch.as_tensor(np.clip(targets, 0, table.shape[0] - 1),
+                           dtype=torch.long, device=table.device)
+    return table[safe].to(I32).cpu().numpy()
 
 
 def _pow2_bucket(n: int, floor_bits: int) -> int:

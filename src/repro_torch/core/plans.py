@@ -144,8 +144,9 @@ class ExecutionRequest:
     neither, channels run their assigned plan (``set_plan``) or the engine
     default, partitioned into plan-groups. ``backend`` overrides the kernel
     backend of whatever plan that resolves to; ``channels`` restricts
-    execution to a subset (None = all). ``resolve_spills`` is the
-    reference's deferred-sync capture lane, not ported yet."""
+    execution to a subset (None = all). ``resolve_spills`` captures
+    overflowed pairs into the SpillQueue's epoch-free resolved lane (see
+    ``BADEngine.dispatch``)."""
 
     flags: Optional[ExecutionFlags] = None
     plan: Optional[ChannelPlan] = None

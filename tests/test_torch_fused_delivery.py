@@ -44,8 +44,9 @@ def test_delivery_rings_and_drain_across_ticks(backend):
 
 
 def test_churn_between_ticks_rebuilds_and_stales_the_ring():
-    """Subscription churn between ticks moves epochs: ring pairs of the
-    churned channel go stale (counted) exactly as in the reference; a
+    """Subscription churn between ticks moves epochs: the stacked caches
+    are patched in place (equal ``(rebuilds, patches)``) and ring pairs of
+    the churned channel go stale (counted) exactly as in the reference; a
     channel-subset request leaves the other rings resident."""
     je, te, rng = _engines(31)
     for eng, plan in ((je, JPlan), (te, TPlan)):
@@ -61,6 +62,9 @@ def test_churn_between_ticks_rebuilds_and_stales_the_ring():
         b = te.execute_all(None, timed=False, deliver=True)
         _assert_reports(a, b, f"tick {tick}", deliver=True)
         _assert_queues(je, te, f"tick {tick}")
+        assert (je.maintenance.rebuilds, je.maintenance.patches) == \
+            (te.maintenance.rebuilds, te.maintenance.patches), tick
+    assert te.maintenance.patches > 0 and te.maintenance.traces == 0
     assert sum(r.overflow.dropped_pairs for r in b.values()) > 0
     req = dict(channels=("MostThreateningTweets",), deliver=True,
                advance=False)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py``, the torch quickstart or the profiling tool, imports JAX
+``chip_smoke.py``, the torch examples or the profiling tool, imports JAX
 or the reference package, and importing the engine leaves JAX unloaded."""
 import ast
 import pathlib
@@ -14,6 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "enriched_pipeline_torch.py",
+    ROOT / "examples" / "crime_alerts_torch.py",
     ROOT / "tools" / "profile_main_path.py"]
 
 
@@ -49,7 +50,10 @@ def test_engine_import_leaves_jax_unloaded():
             "repro_torch.kernels.spatial_match.ops, repro_torch.core.interop, "
             "repro_torch.kernels.join_compact.ops, repro_torch.core.enrich, "
             "repro_torch.launch.serve, repro_torch.kernels.flash_decode.ops, "
-            "repro_torch.kernels.flash_attention.ops; "
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.core.runtime, repro_torch.core.churn, "
+            "repro_torch.core.planner, repro_torch.launch.plan_search, "
+            "repro_torch.configs.bad_default; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -1,7 +1,8 @@
 """The torch quickstart prints what the reference quickstart prints, on the
 same seed, with both run in-process at the quickstart's own small size; its
 README tour (``execute_all(..., deliver=True)`` then ``drain_spilled()``)
-prints what the same calls print on the reference engine."""
+prints what the same calls print on the reference engine. The torch
+crime-alerts example prints the reference example's counts."""
 import importlib.util
 import pathlib
 
@@ -52,3 +53,18 @@ def test_quickstart_twin_prints_the_same_counts(capsys):
     assert "subscribers notified" in want
     assert "drain_spilled round 1" in want
     assert got == want
+
+
+def test_crime_alerts_twin_prints_the_same_counts(capsys):
+    """``examples/crime_alerts_torch.py`` on the CPU prints the reference
+    script's lines, wall times aside."""
+    import re
+
+    def counts(text):
+        return re.sub(r"wall=[0-9.]+ms", "wall=", text)
+
+    _load("crime_alerts").main()
+    want = capsys.readouterr().out
+    _load("crime_alerts_torch").main(device="cpu")
+    got = capsys.readouterr().out
+    assert "alerts=" in want and counts(got) == counts(want)

@@ -21,7 +21,12 @@ from repro_torch.core.plans import ChannelPlan as TPlan  # noqa: E402,F401
 from repro_torch.core.plans import ExecutionFlags as TFlags  # noqa: E402
 from repro_torch.core.plans import ExecutionRequest as TRequest  # noqa: E402
 
-from torch_parity import assert_same, assert_same_tuple, stats_tuple  # noqa: E402,F401
+from repro_torch.core.broker import payload_notifications  # noqa: E402
+from repro_torch.data.synthetic import drug_tweak as t_drug_tweak  # noqa: E402
+from repro_torch.data.synthetic import tweet_arrays  # noqa: E402
+
+from torch_parity import (assert_same, assert_same_tuple,  # noqa: E402,F401
+                          stats_tuple, to_np)
 
 SCANS = ("full", "window", "trad_index", "bad_index")
 BACKENDS = ("oracle", "pallas", "compact", "compact_pallas")
@@ -151,3 +156,48 @@ def check_every_scan_layout_backend(incremental):
                 seen.add(tuple((n, r.num_notified) for n, r in b.items()))
             assert len(seen) == 1, (scan, agg, seen)
             assert b["TweetsAboutCrime3"].num_results > 0
+
+
+# the ChurnReport fields the churn parity tests compare
+COUNTERS = ("ticks", "adds", "removes", "user_adds", "user_removes",
+            "live_subs", "results", "delivered_pairs", "delivered_sids",
+            "spilled", "dropped", "drain_calls", "ring_pending",
+            "queue_pending", "pipeline_depth")
+
+
+def _batcher(records, loc_of):
+    """A make_batch for either package drawing ``tweet_arrays`` (the
+    reference generator's draws) on the 0.5 grid where every spatial
+    distance is exact in float32."""
+    def make(r, n, t0):
+        f, loc = tweet_arrays(r, n, t0)
+        f = t_drug_tweak(f, r, 0.3)
+        loc = (np.round(loc * 2) / 2).astype(np.float32)
+        return loc_of(records, f, loc)
+    return make
+
+
+def _collect(sink, pw=8):
+    """(on_tick, on_drain) folding delivered content into (channel, row,
+    sID) pair and (channel, sID) multisets."""
+    def lines(name, payload, n):
+        return [(name,) + tuple(x) for x in payload_notifications(
+            to_np(payload), n, pw).tolist()]
+
+    def on_tick(tick, reports):
+        for name, rep in reports.items():
+            o = rep.overflow
+            sink["pairs"] += lines(name, rep.payload, o.delivered_pairs)
+            sink["sids"] += [(name, s) for s in
+                             to_np(rep.notify)[:o.delivered_sids].tolist()]
+
+    def on_drain(drained):
+        for name, dr in drained.items():
+            if dr.payload is not None and dr.stats.delivered_pairs:
+                sink["pairs"] += lines(name, dr.payload,
+                                       dr.stats.delivered_pairs)
+            if dr.notify is not None and dr.stats.delivered_sids:
+                sink["sids"] += [(name, s) for s in to_np(dr.notify)[
+                    :dr.stats.delivered_sids].tolist()]
+    return on_tick, on_drain
+
