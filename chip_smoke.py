@@ -60,6 +60,30 @@ exits non-zero, printing no result, without them. Phases:
    ``predicate_filter``, ``spatial_match_stacked`` and ``join_compact``
    (quad path) a tick, and the cohort's spatial hits of one tick against
    numpy.
+9. Sharded: phase 3's engine, plans and workload (65,536 tweets a tick)
+   through ``ShardedBADEngine`` with cross-shard routing at 1 and at 4
+   shards on the one card (TweetsAboutCrime3's 10,000 users hash-split
+   into per-shard cohorts), 2 + 10 ticks each: per-shard conservation,
+   each shard's delivered sIDs on their hash shard, ``routed`` holding
+   exactly the delivered sIDs with each row on its broker's shard, S
+   launches a tick of ``predicate_filter``, ``spatial_match_stacked`` and
+   ``join_compact``; tick by tick the produced sIDs of every channel and
+   TweetsAboutCrime3's delivered sID multiset (its sIDs never overflow)
+   equal at 1 and 4 shards, and the param channels, whose sIDs overflow
+   the per-shard buffers, never deliver an sID more often than the ticks
+   produced it (numpy counts). The 4-shard engine reshards to 2 after its
+   5th timed tick, rings populated: nothing dropped, the registry equal to
+   the shards' live sIDs on their hash shards; its last 5 ticks run on 2
+   shards. The same engines at 512 tweets a tick, where no buffer
+   overflows, 2 + 4 ticks with a ``reshard(2)`` after the 2nd: every
+   tick's delivered sID and (row, sID) multisets equal at 1 and 4 (then
+   2) shards. Last, ``sp_decode_attention`` at the serve phase's last
+   decode step over 4 sequence slices on the card, against one
+   ``flash_decode`` call and the plain version within the bf16
+   tolerance, 4 partial launches a call. Each ``[sharded]`` line carries
+   the card's line; a tick's host time is split by part (ingest, the
+   shards' ``dispatch`` and ``_materialize_group``, the shuffle, the
+   drain).
 
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
@@ -70,7 +94,9 @@ for the attention kernels, PyTorch's ``scaled_dot_product_attention``, on
 seeded inputs at the largest shape a path above gave it (each wrapper keeps
 that shape beside its launch count), and at two timing cases where bytes
 and not the launch set the time: ``flash_decode`` over a 32,768-key cache
-and ``predicate_filter`` over the whole 2M-row ring (``flash_decode``'s
+and ``predicate_filter`` over the whole 2M-row ring, and
+``flash_decode``'s partial entry at one slice of phase 9's
+sequence-parallel decode (``flash_decode``'s
 cluster size is printed and checked at each shape), ``join_compact`` and
 ``flash_decode`` beside the floor under their time (the empty kernel of
 ``csrc/launch_floor.cu`` on the same grid, timed the same way), and
@@ -983,6 +1009,37 @@ def case_flash_decode(dev, rng, shape) -> dict:
                 bound_bytes=2 * (2 * b * h * d + 2 * b * kh * live * d),
                 bound_ops=4 * b * h * d * live,
                 tolerance=FLASH_TOL[torch.bfloat16])
+
+
+def case_flash_decode_partial(dev, rng, shape) -> dict:
+    """The partial entry that ``sp_decode_attention`` launches once a
+    slice: bf16 q and the first of the 4 sequence slices of ``SP_DECODE``'s
+    cache, kv_len the slice's share of ``SP_KV_LEN``. Tolerance: the decode
+    partials' 2e-5 + 1e-5 x max|plain|. Bound: q, the live K/V rows and the
+    float32 partials once over the memory rate. No PyTorch call returns the
+    partials."""
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    b, h, kh, s_len, d = shape
+
+    def normal(*sh):
+        return torch.tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    q, k, v = normal(b, h, d), normal(b, kh, s_len, d), normal(b, kh, s_len, d)
+    lens = np.clip(np.asarray(SP_KV_LEN), 0, s_len)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    want = fd_ref.decode_attention_partial(q, k, v, kv_len)
+    scale = max(float(torch.where(torch.isinf(w), 0.0, w).abs().max())
+                for w in want)
+    live = int(lens.sum())
+    return dict(
+        wrapper=lambda: fd_ops.decode_attention_partial(q, k, v, kv_len),
+        plain=lambda: fd_ref.decode_attention_partial(q, k, v, kv_len),
+        bound_bytes=2 * b * h * d + 2 * 2 * kh * live * d
+        + 4 * (b * h * d + 2 * b * h),
+        bound_ops=4 * h * d * live, ops_per_s=BF16_TENSOR_OPS_PER_S,
+        tolerance=(2e-5 + 1e-5 * scale, 0.0))
 
 
 def join_compact_bytes(tgt, tgt_n, members, brokers, valid, payload) -> int:
@@ -1999,6 +2056,496 @@ def churn_phase(dev, cfg: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded engine
+# ---------------------------------------------------------------------------
+
+# the kernel entries phase 9's engine launches, once a shard a tick
+SHARDED_KERNELS = ("predicate_filter", "spatial_match_stacked",
+                   "join_compact", "join_compact_vector")
+
+
+def build_sharded_engine(dev, cfg: dict, rng, num_shards: int):
+    """Phase 3's engine and plans as a ``ShardedBADEngine`` of ``num_shards``
+    shards on ``dev`` with cross-shard routing on (which surfaces the
+    delivery buffers): ``build_main_engine``'s draws (the subscriptions,
+    then the users), the users set before the channels, so that
+    TweetsAboutCrime3's cohort is every user, hash-split over the shards.
+    Returns (engine, specs, per-state subscription counts, users)."""
+    from repro_torch.core.sharded import ShardedBADEngine
+    from repro_torch.data import synthetic as syn
+
+    eng = ShardedBADEngine(
+        num_shards=num_shards, route_cross_shard=True, device=dev,
+        dataset_capacity=cfg["dataset_capacity"],
+        index_capacity=cfg["index_capacity"], max_window=cfg["max_window"],
+        max_candidates=cfg["max_candidates"],
+        brokers=tuple(f"Broker{i}" for i in range(4)),
+        max_deliver_pairs=cfg["max_deliver_pairs"],
+        max_notify=cfg["max_notify"], use_pallas=True)
+    specs = channel_specs()
+    subs = [syn.subscriptions_by_population(rng, n, 4)
+            for n in (cfg["drug_subs"], cfg["threat_subs"])]
+    users = rng.uniform(-100, 100, (cfg["users"], 2)).astype(np.float32)
+    eng.set_user_locations(users, rng.integers(0, 4, cfg["users"]))
+    for spec in specs:
+        eng.create_channel(spec)
+    sub_counts = {}
+    for spec, (params, brokers) in zip(specs, subs):
+        eng.subscribe_bulk(spec.name, params, brokers)
+        sub_counts[spec.name] = np.bincount(params, minlength=50)
+    for name, plan in fused_plans().items():
+        eng.set_plan(name, plan)
+    return eng, specs, sub_counts, users
+
+
+def check_routed(eng, rep, owner_of: np.ndarray,
+                 counts: np.ndarray) -> None:
+    """``routed`` holds exactly the delivered sIDs (``counts``: how often
+    each was delivered) and each row only sIDs whose broker endpoint that
+    row's shard owns (``owner_of``: each sID's broker's shard): row o's
+    live prefix is as long as the deliveries its brokers own, holds only
+    their sIDs, as often as they were delivered, and -1 follows it."""
+    s = eng.num_shards
+    routed = rep.routed
+    assert routed.dtype == np.int32 and routed.shape == (
+        s, s * eng.shards[0].max_notify), routed.shape
+    per_owner = np.bincount(owner_of, weights=counts, minlength=s)
+    got = np.zeros(counts.shape, np.int64)
+    for o in range(s):
+        n = int(per_owner[o])
+        row = routed[o, :n]
+        assert (routed[o, n:] == -1).all(), (rep.channel, o)
+        assert (row >= 0).all() and (owner_of[row] == o).all(), \
+            (rep.channel, o)
+        got += np.bincount(row, minlength=counts.shape[0])
+    assert np.array_equal(got, counts), rep.channel
+
+
+def check_partitioned(eng, specs) -> None:
+    """Every shard's live sIDs are the registry's, each on its hash shard,
+    and the cohort of every user is split by ``shard_for_users``."""
+    from repro_torch.distributed import partition
+    s = eng.num_shards
+    for spec in specs:
+        if spec.join == "param":
+            per = eng.shard_live_sids(spec.name)
+            assert np.array_equal(np.sort(np.concatenate(per)),
+                                  eng.live_sids(spec.name)), spec.name
+            of = partition.shard_for_sids
+        else:
+            per = [e.channels[spec.name].cohort.slot_uids() for e in
+                   eng.shards]
+            per = [u[u >= 0] for u in per]
+            assert np.array_equal(np.sort(np.concatenate(per)),
+                                  np.arange(len(eng._user_brokers))), \
+                spec.name
+            of = partition.shard_for_users
+        for i, ids in enumerate(per):
+            assert (of(ids, s) == i).all(), (spec.name, i)
+
+
+def drained_sids(drained: dict, with_pairs: bool) -> tuple:
+    """The sIDs each channel's drain reports re-delivered (host arrays;
+    keys ``chan`` or ``chan@s{i}[#r{k}]``) and, ``with_pairs``, the (row,
+    sID) pairs of the re-packed lines (a full round is 16,384 lines of up
+    to 10,240 sIDs: only the exact runs, which drain nothing, ask)."""
+    from repro_torch.core.broker import payload_notifications
+    sids, pairs = {}, {}
+    for key, dr in drained.items():
+        name = key.split("@")[0]
+        st = dr.stats
+        if dr.notify is not None and st.delivered_sids:
+            sids.setdefault(name, []).append(
+                dr.notify[:st.delivered_sids].cpu().numpy())
+        if with_pairs and dr.payload is not None and st.delivered_pairs:
+            # only the delivered lines cross to the host: the buffer is
+            # max_deliver_pairs lines of the slot table's width (672 MB)
+            lines = dr.payload[:st.delivered_pairs].cpu().numpy()
+            pairs.setdefault(name, []).append(payload_notifications(
+                lines, st.delivered_pairs, 8))
+    return sids, pairs
+
+
+def pair_keys(pairs: list) -> np.ndarray:
+    """(row, sID) pairs as sorted int64 keys, for multiset comparison."""
+    if not pairs:
+        return np.zeros(0, np.int64)
+    p = np.concatenate(pairs).astype(np.int64)
+    return np.sort((p[:, 0] << 32) | p[:, 1])
+
+
+def owners(eng, specs) -> dict:
+    """Per channel, each registered sID's (or user's) hash shard and its
+    broker's shard, as lookup tables for the per-tick checks."""
+    from repro_torch.distributed import partition
+    s = eng.num_shards
+    out = {}
+    for spec in specs:
+        if spec.join == "spatial":
+            brokers = eng._user_brokers
+            home = partition.shard_for_users(np.arange(len(brokers)), s)
+        else:
+            reg = eng._reg[spec.name]
+            brokers = reg.brokers[:reg.next_sid]
+            home = partition.shard_for_sids(np.arange(reg.next_sid), s)
+        out[spec.name] = (home, partition.broker_owner(brokers, s))
+    return out
+
+
+HOST_PARTS = ("dispatch", "_materialize_group")
+
+
+def sharded_run(dev, cfg: dict, num_shards: int, tick_rows: int,
+                ticks: int, reshard_after=None, exact: bool = False) -> dict:
+    """Phase 3's workload at ``tick_rows`` tweets a tick through a sharded
+    engine: ``warmup`` + ``ticks`` ticks of ingest, ``execute_all(None,
+    deliver=True)`` and ``drain_spilled()``; with ``reshard_after``,
+    ``reshard(2)`` after that timed tick. Each tick: per-shard
+    conservation, each shard's delivered sIDs on their hash shard, the
+    routing invariant, S launches of each kernel (on the card), and the
+    tick's time by part (ingest; the shards' ``dispatch`` and
+    ``_materialize_group`` host time; the shuffle; the drain). ``exact``
+    records every tick's delivered sID and (row, sID) multisets per channel
+    and asserts that nothing overflows; otherwise the param channels'
+    delivered sIDs, drains included, must never outnumber what the ticks
+    produced (per sID, cumulatively: numpy counts the matching tweets a
+    state) and TweetsAboutCrime3, whose sIDs never overflow, keeps its
+    per-tick sID multiset."""
+    from repro_torch.core import records as R
+    from repro_torch.core.broker import payload_notifications
+    from repro_torch.core.predicates import compile_conditions
+    from repro_torch.data import synthetic as syn
+
+    cuda = dev.type == "cuda"
+    warmup = cfg["warmup"]
+    rng = np.random.default_rng(SEED + 1)
+    t0 = time.perf_counter()
+    eng, specs, sub_counts, users = build_sharded_engine(dev, cfg, rng,
+                                                         num_shards)
+    setup_s = time.perf_counter() - t0
+    one = {s.name: compile_conditions([list(s.fixed_preds)]) for s in specs}
+    route_s = []
+    route = eng._route
+
+    def timed_route(merged):
+        t = time.perf_counter()
+        route(merged)
+        route_s.append(time.perf_counter() - t)
+
+    eng._route = timed_route
+    spent = [host_timers(e, HOST_PARTS) for e in eng.shards]
+    table = owners(eng, specs)
+    params = {s.name: eng._reg[s.name].params[:eng._reg[s.name].next_sid]
+              for s in specs if s.join == "param"}
+    produced = {n: np.zeros(p.shape, np.int64) for n, p in params.items()}
+    got_cum = {n: np.zeros(p.shape, np.int64) for n, p in params.items()}
+    walls, parts, shards_at, content, notified, delivered = ([] for _ in
+                                                            range(6))
+    totals = dict(delivered_sids=0, redelivered_sids=0, spilled_sids=0,
+                  dropped_sids=0, spilled_pairs=0, dropped_pairs=0)
+    reshard_s = ring_at_reshard = reshard_launches = None
+    reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync(dev)
+    t_run = time.perf_counter()
+    for tick in range(warmup + ticks):
+        f, loc = syn.tweet_arrays(rng, tick_rows, t0=1 + tick * 100)
+        f = syn.drug_tweak(f, rng, 0.05)
+        before, n_route = launch_counts(), len(route_s)
+        host0 = {k: sum(d[k] for d in spent) for k in HOST_PARTS}
+        ts = time.perf_counter()
+        eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+        sync(dev)
+        ti = time.perf_counter()
+        reps = eng.execute_all(None, deliver=True)
+        te = time.perf_counter()
+        drained = eng.drain_spilled()
+        sync(dev)
+        walls.append(time.perf_counter() - ts)
+        host = {k: 1e3 * (sum(d[k] for d in spent) - host0[k])
+                for k in HOST_PARTS}
+        parts.append(dict(ingest=1e3 * (ti - ts), **host,
+                          route=1e3 * sum(route_s[n_route:]),
+                          execute_all=1e3 * (te - ti),
+                          drain=1e3 * (walls[-1] - (te - ts))))
+        s = eng.num_shards
+        shards_at.append(s)
+        got = since(before)
+        if cuda:
+            want = dict.fromkeys(got, 0)
+            want.update(dict.fromkeys(SHARDED_KERNELS, s))
+            assert got == want, (tick, s, got)
+        re_sids, re_pairs = drained_sids(drained, exact)
+        tick_content, tick_notified = {}, {}
+        delivered.append(0)
+        for spec in specs:
+            rep = reps[spec.name]
+            home, owner_of = table[spec.name]
+            n_ids = home.shape[0]
+            counts = np.zeros(n_ids, np.int64)
+            pairs = list(re_pairs.get(spec.name, []))
+            for i, r in enumerate(rep.per_shard):
+                check_conservation(r)
+                o = r.overflow
+                d = np.asarray(r.notify)[:o.delivered_sids]
+                assert (home[d] == i).all(), (tick, spec.name, i)
+                counts += np.bincount(d, minlength=n_ids)
+                for k in totals:
+                    if k != "redelivered_sids":
+                        totals[k] += getattr(o, k)
+                if exact:
+                    assert o.overflow == 0, (tick, spec.name, i, o)
+                    pairs.append(payload_notifications(
+                        r.payload, o.delivered_pairs, 8))
+                elif spec.join == "spatial":
+                    assert o.overflow_sids == 0, (tick, spec.name, i, o)
+            check_routed(eng, rep, owner_of, counts)
+            for x in re_sids.get(spec.name, []):
+                counts += np.bincount(x, minlength=n_ids)
+            tick_notified[spec.name] = rep.num_notified
+            n_delivered = int(counts.sum())
+            delivered[-1] += n_delivered
+            totals["redelivered_sids"] += n_delivered - sum(
+                r.overflow.delivered_sids for r in rep.per_shard)
+            if exact or spec.join == "spatial":
+                tick_content[spec.name] = (
+                    counts, pair_keys(pairs) if exact else None,
+                    rep.num_results if spec.join == "spatial" else None)
+            else:
+                m = np.bincount(f[_host_match(f, one[spec.name]),
+                                  spec.param_field], minlength=50)
+                produced[spec.name] += m[params[spec.name]]
+                got_cum[spec.name] += counts
+                assert (got_cum[spec.name] <= produced[spec.name]).all(), \
+                    (tick, spec.name)
+            if tick == 0:
+                check_numpy(rep, spec, f, loc, one, sub_counts, users, True)
+        content.append(tick_content)
+        notified.append(tick_notified)
+        if exact:
+            assert eng.ring_pending_pairs() + eng.ring_pending_sids() == 0
+        del reps, drained
+        if reshard_after is not None and tick == warmup + reshard_after - 1:
+            old = list(eng.shards)
+            ring_at_reshard = (eng.ring_pending_pairs(),
+                               eng.ring_pending_sids(),
+                               eng.spill.pending_pairs(),
+                               eng.spill.pending_sids())
+            before = launch_counts()
+            sync(dev)
+            t = time.perf_counter()
+            dr = eng.reshard(2)
+            sync(dev)
+            reshard_s = time.perf_counter() - t
+            reshard_launches = since(before)
+            assert all(x.stats.dropped_pairs == x.stats.dropped_sids == 0
+                       for x in dr.values()), "reshard dropped entries"
+            assert sum(e.ring_flush_drops for e in old) == 0
+            del old
+            re_sids, re_pairs = drained_sids(dr, exact)
+            if exact:
+                assert not re_sids and not re_pairs, "nothing to drain"
+            for name, arrs in re_sids.items():
+                # only the param channels' sIDs overflow
+                assert name in got_cum, name
+                n = sum(len(x) for x in arrs)
+                totals["redelivered_sids"] += n
+                delivered[-1] += n
+                for x in arrs:
+                    got_cum[name] += np.bincount(
+                        x, minlength=params[name].shape[0])
+                assert (got_cum[name] <= produced[name]).all(), name
+            check_partitioned(eng, specs)
+            spent = [host_timers(e, HOST_PARTS) for e in eng.shards]
+            table = owners(eng, specs)
+    run_s = time.perf_counter() - t_run
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+    eng._route = route
+    del eng
+    stop = warmup + (reshard_after or ticks)
+    timed = np.asarray(walls[warmup:stop])
+    part_ms = {k: float(np.mean([p[k] for p in parts[warmup:stop]]))
+               for k in parts[0]}
+    return dict(
+        num_shards=num_shards, setup_s=setup_s, walls_ms=1e3 * timed,
+        tick_ms_mean=1e3 * float(timed.mean()),
+        tick_ms_p50=1e3 * float(np.median(timed)),
+        tick_ms_max=1e3 * float(timed.max()),
+        ticks_per_s=float(1 / timed.mean()),
+        notifications_per_s=float(sum(delivered[warmup:stop]) / timed.sum()),
+        delivered_per_tick=float(np.mean(delivered[warmup:stop])),
+        part_ms=part_ms, after_ms=[1e3 * w for w in walls[stop:]],
+        warmup_ms=[1e3 * w for w in walls[:warmup]], run_s=run_s,
+        check_s=run_s - sum(walls) - (reshard_s or 0.0),
+        route_ms_mean=part_ms["route"], shards_at=shards_at,
+        content=content, notified=notified, totals=totals,
+        launches=launches, peak_gib=peak, reshard_s=reshard_s,
+        ring_at_reshard=ring_at_reshard, reshard_launches=reshard_launches)
+
+
+def same_content(a: dict, b: dict, ticks: int, what: str) -> int:
+    """Per tick and channel, equal delivered sID multisets (counts per sID)
+    and pair multisets where both recorded them, equal produced sID counts
+    and equal spatial results; returns the number of (tick, channel)
+    comparisons."""
+    n = 0
+    for t in range(ticks):
+        assert a["notified"][t] == b["notified"][t], (what, t)
+        assert a["content"][t].keys() == b["content"][t].keys(), (what, t)
+        for name, (sids, pairs, results) in a["content"][t].items():
+            sids_b, pairs_b, results_b = b["content"][t][name]
+            assert np.array_equal(sids, sids_b), (what, t, name)
+            assert results == results_b, (what, t, name)
+            if pairs is not None:
+                assert np.array_equal(pairs, pairs_b), (what, t, name)
+            n += 1
+    return n
+
+
+def sp_decode_phase(dev, rng) -> dict:
+    """``sp_decode_attention`` at the serve phase's last decode step (B 8,
+    H 12, KH 2, a 544-key cache, D 128, bf16) over 4 sequence slices of
+    136 keys on ``dev``, rows whose live keys end in every slice, at a
+    slice boundary and in the first slice only (slices 2-4 empty): held
+    against one ``flash_decode`` call and the plain version within
+    ``FLASH_TOL``; 4 partial launches a call; both timed."""
+    from repro_torch.distributed.collectives import sp_decode_attention
+    from repro_torch.distributed.partition import Rules
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    b, h, kh, s_len, d = SP_DECODE
+
+    def normal(*sh):
+        return torch.tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    q, k, v = normal(b, h, d), normal(b, kh, s_len, d), normal(b, kh, s_len, d)
+    kv_len = torch.tensor(SP_KV_LEN, dtype=torch.int32, device=dev)
+    rules = Rules([dev] * 4)
+    reset_launch_counts()
+    before = launch_counts()
+    got = sp_decode_attention(rules, q, k, v, kv_len)
+    sync(dev)
+    launches = since(before)["flash_decode"]
+    one = fd_ops.decode_attention(q, k, v, kv_len)
+    plain = fd_ref.decode_attention(q, k, v, kv_len)
+    errs = {}
+    for name, want in (("flash_decode", one), ("plain", plain)):
+        g, w = got.float(), want.float()
+        assert tol_excess(g, w, *FLASH_TOL[torch.bfloat16]) <= 0, name
+        errs[name] = max_abs_err(g, w)
+    out = dict(launches=launches, errors=errs, shape=(b, h, kh, s_len, d),
+               kv_len=SP_KV_LEN)
+    if dev.type == "cuda":
+        assert launches == 4, launches
+        out.update(
+            sp_ms=cuda_ms(lambda: sp_decode_attention(rules, q, k, v,
+                                                      kv_len), 50),
+            sp_graph_ms=graph_ms(lambda: sp_decode_attention(
+                rules, q, k, v, kv_len), 20),
+            one_ms=cuda_ms(lambda: fd_ops.decode_attention(q, k, v, kv_len),
+                           50),
+            one_graph_ms=graph_ms(lambda: fd_ops.decode_attention(
+                q, k, v, kv_len), 20))
+    return out
+
+
+def sharded_phase(dev, cfg: dict) -> dict:
+    """Phase 9: (a) phase 3's workload through one shard and through 4
+    shards with routing, 2 + 10 ticks each, the 4-shard engine resharded to
+    2 after its 5th timed tick, rings populated (b); (a2) the same engines
+    at ``exact_rows`` tweets a tick, where no buffer overflows, so that
+    every tick's delivered content must be equal, with a ``reshard(2)``
+    after timed tick ``exact_reshard``; (c) the sequence-parallel
+    decode."""
+    out = {}
+    full = {s: sharded_run(dev, cfg, s, cfg["tick_rows"], cfg["ticks"],
+                           reshard_after=cfg["reshard_after"] if s > 1
+                           else None)
+            for s in (1, 4)}
+    n = cfg["warmup"] + cfg["ticks"]
+    out["full_compared"] = same_content(full[1], full[4], n, "full rate")
+    assert full[4]["ring_at_reshard"][0] + full[4]["ring_at_reshard"][1] > 0, \
+        full[4]["ring_at_reshard"]
+    exact = {s: sharded_run(dev, cfg, s, cfg["exact_rows"],
+                            cfg["exact_ticks"],
+                            reshard_after=cfg["exact_reshard"] if s > 1
+                            else None, exact=True)
+             for s in (1, 4)}
+    out["exact_compared"] = same_content(
+        exact[1], exact[4], cfg["warmup"] + cfg["exact_ticks"], "exact")
+    for run in (*full.values(), *exact.values()):
+        run.pop("content")
+    out.update(full=full, exact=exact,
+               sp=sp_decode_phase(dev, np.random.default_rng(SEED + 10)))
+    return out
+
+
+def print_sharded(sh: dict, card: str) -> None:
+    """Phase 9's ``[sharded]`` lines, each with the card's line."""
+    for key, what in (("full", f"{SHARDED['tick_rows']} tweets a tick"),
+                      ("exact", f"{SHARDED['exact_rows']} tweets a tick, "
+                                "no buffer overflows")):
+        tag = "a" if key == "full" else "a2"
+        for s, r in sh[key].items():
+            shards = f"{s} shard{'s' if s > 1 else ''}"
+            print(f"[sharded] ({tag}) {shards}, {what}, on {card}: setup "
+                  f"{r['setup_s']:.1f} s; {len(r['walls_ms'])} timed ticks "
+                  f"at {shards}: mean {r['tick_ms_mean']:.2f} ms, p50 "
+                  f"{r['tick_ms_p50']:.2f}, max {r['tick_ms_max']:.2f} ms; "
+                  f"{r['ticks_per_s']:.3f} ticks/s, "
+                  f"{r['notifications_per_s']:.0f} notifications/s "
+                  f"({r['delivered_per_tick']:.0f} delivered sIDs a tick, "
+                  f"drains included); shuffle (_route) "
+                  f"{r['route_ms_mean']:.2f} ms a tick; max_memory_allocated "
+                  f"{r['peak_gib']:.2f} GiB")
+            print(f"[sharded] ({tag}) {shards}: host ms a timed tick by part "
+                  f"{json.dumps({k: round(v, 2) for k, v in r['part_ms'].items()})}"
+                  f" (dispatch and _materialize_group summed over the shards,"
+                  f" inside execute_all, as is the shuffle); tick ms "
+                  f"{json.dumps([round(w, 2) for w in r['walls_ms']])}; after "
+                  f"the reshard {json.dumps([round(w, 2) for w in r['after_ms']])}"
+                  f"; warm-up ticks "
+                  f"{json.dumps([round(w, 2) for w in r['warmup_ms']])}; the "
+                  f"run {r['run_s']:.1f} s, {r['check_s']:.1f} s of it the "
+                  f"checks; totals {json.dumps(r['totals'])}; launches "
+                  f"{json.dumps(r['launches'])}")
+    r4 = sh["full"][4]
+    print(f"[sharded] (a) 4 shards (2 after the reshard) against 1, tick by "
+          f"tick: the produced sIDs of every channel, TweetsAboutCrime3's "
+          f"delivered sID multiset and results equal ({sh['full_compared']} "
+          f"tick-channel pairs); the param channels' delivered sIDs never "
+          f"above their produced count (cumulative, per sID); per-shard "
+          f"conservation, each shard's sIDs on their hash shard, routed == "
+          f"delivered with each row on its broker's shard, S launches a tick "
+          f"of each kernel")
+    ring = r4["ring_at_reshard"]
+    print(f"[sharded] (b) reshard(2) after the 4-shard engine's timed tick "
+          f"{SHARDED['reshard_after']} on {card}: {r4['reshard_s']:.3f} s "
+          f"with {ring[0]} pairs and {ring[1]} sIDs in the rings and "
+          f"{ring[2]} / {ring[3]} queued; nothing dropped; registry == "
+          f"shards' live sIDs on their hash shards; launches in the reshard "
+          f"{json.dumps(r4['reshard_launches'])}; in the exact run after "
+          f"timed tick {SHARDED['exact_reshard']}: "
+          f"{sh['exact'][4]['reshard_s']:.3f} s")
+    print(f"[sharded] (a2) 4 shards (2 after the reshard) against 1, tick by "
+          f"tick: delivered sID and (row, sID) multisets and produced sIDs "
+          f"equal for {sh['exact_compared']} tick-channel pairs")
+    sp = sh["sp"]
+    print(f"[sharded] (c) sp_decode_attention over 4 slices on {card}: "
+          f"B, H, KH, S, D {sp['shape']}, kv_len {sp['kv_len']}; "
+          f"{sp['launches']} flash_decode partial launches a call; max abs "
+          f"err {json.dumps(sp['errors'])} (tolerance "
+          f"{FLASH_TOL[torch.bfloat16]}); {sp['sp_ms']:.4f} ms a call (CUDA "
+          f"events; graph {sp['sp_graph_ms']:.4f} ms) against one "
+          f"flash_decode call {sp['one_ms']:.4f} ms (graph "
+          f"{sp['one_graph_ms']:.4f} ms)")
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -2028,6 +2575,17 @@ ENRICH_BUDGET = 4096
 CHURN = dict(MAIN, cohort=5000, drug_churn=2500, threat_churn=500,
              user_churn=312, rounds=4, warmup=2, ticks=20, rebuild_ticks=4,
              planner_ticks=6)
+# phase 9: phase 3's workload on the sharded engine, 2 + 10 ticks at 1 and
+# 4 shards (the 4-shard engine reshards to 2 after its 5th timed tick); the
+# exact runs at 512 tweets a tick, where no delivery buffer overflows (the
+# drug channel produces about 1.3M sIDs a tick against max_notify's 4.2M),
+# 2 + 4 ticks, a reshard(2) after the 2nd; the sequence-parallel decode at
+# the serve phase's last step over 4 slices of 136 keys, kv_len rows ending
+# in every slice, at slice boundaries, and in the first slice only
+SHARDED = dict(MAIN, warmup=2, ticks=10, reshard_after=5, exact_rows=512,
+               exact_ticks=4, exact_reshard=2)
+SP_DECODE = (SERVE["batch"], 12, 2, SERVE["prompt_len"] + SERVE["gen"], 128)
+SP_KV_LEN = [543, 136, 100, 1, 544, 137, 408, 272]
 
 
 def main() -> int:
@@ -2203,6 +2761,13 @@ def main() -> int:
     print(f"[churn] subs/s incremental over rebuild {ch['ratio']:.2f}x on "
           f"{card}; phase 8 in {churn_s:.1f} s")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sh = sharded_phase(dev, SHARDED)
+    sharded_s = time.perf_counter() - t
+    print_sharded(sh, card_line())
+    print(f"[sharded] phase 9 in {sharded_s:.1f} s")
+
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
     timed = [
@@ -2237,6 +2802,12 @@ def main() -> int:
          "its ring", "N={} F={} C={}", case_predicate_filter,
          (MAIN["dataset_capacity"], fp["shapes"]["predicate_filter"][1],
           fp["shapes"]["predicate_filter"][2])),
+        # the partial entry at one slice of phase 9's sequence-parallel
+        # decode (4 launches a sp_decode_attention call)
+        ("flash_decode", {"launches": {"flash_decode": sh["sp"]["launches"]}},
+         "phase 9 (sp_decode_attention, one slice's partial)",
+         "B={} H={} KH={} S={} D={}", case_flash_decode_partial,
+         SP_DECODE[:3] + (SP_DECODE[3] // 4, SP_DECODE[4])),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
@@ -2298,14 +2869,24 @@ def main() -> int:
     # the second rows: join_compact at the compact phase's real grid,
     # flash_attention at the enriched tick's scorer batch, flash_decode at a
     # long cache, predicate_filter at a full scan of the ring
-    *entries, real_grid, scorer, long_cache, full_scan = measured
+    *entries, real_grid, scorer, long_cache, full_scan, sp_slice = measured
     for entry, second, key in ((real_grid, "join_compact", "real_grid"),
                                (scorer, "flash_attention", "enriched_tick"),
                                (long_cache, "flash_decode", "long_cache"),
-                               (full_scan, "predicate_filter", "full_scan")):
+                               (full_scan, "predicate_filter", "full_scan"),
+                               (sp_slice, "flash_decode", "sp_decode_slice")):
         first = next(e for e in entries if e["name"] == second)
         first[key] = {k: v for k, v in entry.items()
                       if k not in ("name", "route", "source", "replaces")}
+    # phase 9's launches: the 4-shard engine's run (10 + 2 warm-up ticks at
+    # 4 shards, then 3 at 2) and one sp_decode_attention call's partials
+    sharded = {name: sh["full"][4]["launches"][name]
+               for name in SHARDED_KERNELS[:3]}
+    sharded["flash_decode"] = sh["sp"]["launches"]
+    for e in entries:
+        if e["name"] in sharded:
+            e["sharded_launches"] = sharded[e["name"]]
+    assert min(sharded.values()) > 0, sharded
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)
     print(f"[parity] one kernel a flash_decode call (torch.profiler): "

@@ -9,9 +9,12 @@ branch at S >= 8192) puts a plain version on the path there. On a CPU tensor
 they follow the reference's branches exactly (``attn_impl == "flash"`` ->
 the wrapper, which runs the plain version on the CPU; the chunked
 online-softmax path at S >= 8192 unless ``"ref_full"``; else the plain
-version), so the CPU tests compare like with like. The reference's
-sequence-parallel decode (``sp_decode_attention`` under a mesh) waits for
-ROADMAP item 15.
+version), so the CPU tests compare like with like. Under
+``distributed.partition.use_rules`` with a model axis whose size divides
+the cache length, ``attn_decode`` runs the sequence-parallel decode
+(``distributed.collectives.sp_decode_attention``: the kernel's partial
+entry on each slice of the cache, then the exact merge), as the
+reference's decode does under a mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.partition import active_rules
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -159,7 +164,12 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     k = apply_rope(k, cos, sin, positions.expand(b, cfg.n_kv_heads, 1))
     cache = kvcache.update_kv(cache, k, v, pos)
     q1 = q[:, :, 0].contiguous()                  # (B, H, hd)
-    if x.device.type != "cpu" or cfg.attn_impl == "flash":
+    rules = active_rules()
+    if rules is not None and rules.model_axis is not None \
+            and cache["k"].shape[2] % rules.model_size == 0:
+        out = collectives.sp_decode_attention(rules, q1, cache["k"],
+                                              cache["v"], kv_len)
+    elif x.device.type != "cpu" or cfg.attn_impl == "flash":
         out = fd_ops.decode_attention(q1, cache["k"], cache["v"], kv_len)
     else:
         out = fd_ref.decode_attention(q1, cache["k"], cache["v"], kv_len)

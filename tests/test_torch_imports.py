@@ -53,7 +53,9 @@ def test_engine_import_leaves_jax_unloaded():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.core.runtime, repro_torch.core.churn, "
             "repro_torch.core.planner, repro_torch.launch.plan_search, "
-            "repro_torch.configs.bad_default; "
+            "repro_torch.configs.bad_default, repro_torch.core.sharded, "
+            "repro_torch.distributed.collectives, "
+            "repro_torch.distributed.partition; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

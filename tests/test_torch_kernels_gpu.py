@@ -570,3 +570,50 @@ def test_predicate_filter_wide_tables(rng, cuda_device, c, f):
         assert torch.equal(pf_ops.predicate_filter_rows(xr, conds),
                            pf_ref.predicate_filter_rows(xr, lo, hi, neq))
 
+
+
+@pytest.mark.parametrize("num_shards", [1, 2, 4])
+def test_shuffle_notify_on_the_card_matches_ref(rng, cuda_device, num_shards):
+    """The cross-shard notify shuffle on CUDA tensors (every shard on the
+    one card) gives ``shuffle_notify_ref``'s bits, on the card."""
+    from repro_torch.distributed.collectives import (shuffle_notify,
+                                                     shuffle_notify_ref)
+    for cap in (1, 33, 4096):
+        sids = rng.integers(0, 1 << 20, (num_shards, cap)).astype(np.int32)
+        sids[rng.random(sids.shape) < 0.4] = -1
+        owners = np.where(sids >= 0, rng.integers(0, num_shards, sids.shape),
+                          -1).astype(np.int32)
+        got = shuffle_notify([cuda_device] * num_shards,
+                             torch.as_tensor(sids, device=cuda_device),
+                             torch.as_tensor(owners, device=cuda_device))
+        assert got.is_cuda and got.dtype == torch.int32
+        np.testing.assert_array_equal(
+            got.cpu().numpy(), shuffle_notify_ref(sids, owners, num_shards))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sp_decode_attention_matches_one_flash_decode(rng, cuda_device,
+                                                      dtype):
+    """Four sequence slices of the cache on the one card, kv_len rows
+    ending in every slice, at slice boundaries, in the first slice only
+    (slices 2-4 empty for that row) and nowhere: the merged partials equal
+    one ``flash_decode`` call within FLASH_TOL, 4 partial launches a
+    call."""
+    from repro_torch.distributed.collectives import sp_decode_attention
+    from repro_torch.distributed.partition import Rules
+    b, h, kh, s, d = 8, 12, 2, 544, 128
+    q = _normal(rng, (b, h, d), dtype, cuda_device)
+    k = _normal(rng, (b, kh, s, d), dtype, cuda_device)
+    v = _normal(rng, (b, kh, s, d), dtype, cuda_device)
+    kv_len = torch.tensor([543, 136, 100, 1, 544, 137, 408, 0],
+                          dtype=torch.int32, device=cuda_device)
+    rules = Rules([cuda_device] * 4)
+    before = fd_ops.LAUNCHES
+    got = sp_decode_attention(rules, q, k, v, kv_len)
+    assert fd_ops.LAUNCHES - before == 4
+    assert got.dtype == dtype and got.shape == q.shape
+    one = fd_ops.decode_attention(q, k, v, kv_len)
+    assert _within(got.float(), one.float(), dtype)
+    assert _within(got.float(), fd_ref.decode_attention(q, k, v, kv_len)
+                   .float(), dtype)
+    assert not got[7].any()
