@@ -84,10 +84,31 @@ exits non-zero, printing no result, without them. Phases:
    the card's line; a tick's host time is split by part (ingest, the
    shards' ``dispatch`` and ``_materialize_group``, the shuffle, the
    drain).
+10. Families: each of the MoE, SSM, hybrid, VLM and encoder-decoder
+   configurations at its published width, bf16 weights from a seeded
+   generator, through ``launch/serve.py::serve`` with 16 greedy tokens:
+   phi3.5-moe-42b-a6.6b (8 of 32 layers) and dbrx-132b (2 of 40) at batch
+   8, prompt 512; pixtral-12b (40 layers, 512 seeded embeddings, batch 4);
+   zamba2-2.7b (9 x 7 blocks, head dim 80) and xlstm-125m (float32
+   weights) at batch 8, prompt 512; seamless-m4t-medium (12 + 12 layers,
+   1,024 frames and 4 decoder tokens, batch 8). One family at a time, its
+   memory freed before the next. Each prints prefill ms, decode ms a token,
+   the kernels' launches (exactly one ``flash_attention`` an attention
+   block a prefill and one ``flash_decode`` a step, the enc-dec's encoder,
+   self and cross attention each; xlstm has none and launches neither) and
+   peak memory; its logits are finite; a prefill and 3 decode steps with
+   the kernels match the same steps with the plain attention versions
+   bound in by this script (every row within phase 6's limits or twice the
+   model's rounding floor, measured as the distance that one rounding step
+   of the attention moves its logits; in the MoE families 3 rows in 4
+   within phase 6's limits, since a row whose expert choice flips differs
+   at O(1)); and, without experts, the cached decode matches the
+   teacher-forced forward within phase 6's limits in float32 compute.
 
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
-bfloat16, the reference kernel test's). Last, every kernel entry is held
+bfloat16, the reference kernel test's), head dim 80 and k/v with their own
+length included. Last, every kernel entry is held
 against its plain version and timed (a CUDA graph of wrapper calls, the
 wrapper and the plain version between CUDA events) beside its bound and,
 for the attention kernels, PyTorch's ``scaled_dot_product_attention``, on
@@ -96,7 +117,10 @@ that shape beside its launch count), and at two timing cases where bytes
 and not the launch set the time: ``flash_decode`` over a 32,768-key cache
 and ``predicate_filter`` over the whole 2M-row ring, and
 ``flash_decode``'s partial entry at one slice of phase 9's
-sequence-parallel decode (``flash_decode``'s
+sequence-parallel decode, and phase 10's new shapes: ``flash_attention``
+at zamba2's prefill (head dim 80), seamless's encoder and its
+cross-attention (Sk != Sq), ``flash_decode`` at zamba2's decode and at
+seamless's cross step (``flash_decode``'s
 cluster size is printed and checked at each shape), ``join_compact`` and
 ``flash_decode`` beside the floor under their time (the empty kernel of
 ``csrc/launch_floor.cu`` on the same grid, timed the same way), and
@@ -609,7 +633,7 @@ def decode_edge_parity(dev, normal) -> dict:
         cases.append((slabs, 2, 1, 32 * n * 2, 128, n))
     cases += [(8, 12, 2, 1024, 128, None)]          # ragged, below
     for g in (1, 3, 4, 6, 8, 32):
-        for d in (16, 32, 64, 128):
+        for d in (16, 32, 64, 80, 128):
             cases.append((3, g, 1, 200, d, None))
     for dtype in (torch.float32, torch.bfloat16):
         name = f"flash_decode_{str(dtype).split('.')[-1]}"
@@ -763,11 +787,14 @@ def flash_edge_parity(dev) -> dict:
     head dim (16 to 128), G = 1 and 6, causal and full, float32 and bf16,
     and the bf16 kernel's packed (G * S, D) slabs ending inside a 64-row
     tile (G * S = 66, 60, 40), spanning several (S = 64 full, S = 512),
-    G = 1, each written between sentinels (``attention_into_sentinel``);
+    G = 1, head dim 80 (the D = 128 plan over 80-wide maps: a column stored
+    past 80 would overwrite the next row or a sentinel), and k/v with their
+    own length Sk (4 queries over 1,024 keys, ragged either way, Sk <= 16),
+    each written between sentinels (``attention_into_sentinel``);
     ``flash_decode`` with kv_len 0, 1, ragged and the full cache, G = 1 and
-    6, a cache longer than one split, both types (partials: m exactly
-    -inf where no key is live, l = 0 and acc = 0 there; elsewhere within
-    2e-5 + 1e-5 relative), and the clustered kernel's own cases
+    6, a cache longer than one split, head dim 80, both types (partials:
+    m exactly -inf where no key is live, l = 0 and acc = 0 there;
+    elsewhere within 2e-5 + 1e-5 relative), and the clustered kernel's own cases
     (``decode_edge_parity``). Returns the largest error per kernel and
     type."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -783,25 +810,32 @@ def flash_edge_parity(dev) -> dict:
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         (atol, rtol), name = FLASH_TOL[dtype], str(dtype).split(".")[-1]
-        for b, h, kh, s, d, causal in (
+        for b, h, kh, s, d, causal, *rest in (
                 (1, 1, 1, 1, 16, True), (1, 6, 1, 1, 128, False),
                 (3, 12, 2, 10, 128, True), (2, 12, 2, 10, 128, False),
                 (2, 6, 6, 33, 32, True), (1, 6, 1, 97, 64, True),
                 (1, 12, 2, 300, 128, True), (2, 4, 2, 256, 64, False),
                 (1, 2, 1, 128, 16, False), (2, 12, 2, 11, 128, True),
                 (1, 6, 1, 64, 128, False), (3, 12, 2, 10, 16, True),
-                (1, 12, 2, 512, 128, True), (2, 8, 8, 40, 64, True)):
+                (1, 12, 2, 512, 128, True), (2, 8, 8, 40, 64, True),
+                (2, 32, 32, 512, 80, True), (1, 4, 2, 300, 80, True),
+                (2, 4, 2, 97, 80, False), (1, 2, 1, 10, 80, True),
+                (2, 16, 16, 4, 64, False, 1024), (1, 6, 2, 7, 32, False, 300),
+                (2, 4, 2, 130, 16, False, 3), (2, 8, 8, 5, 80, False, 77),
+                (3, 2, 1, 65, 64, False, 16)):
+            sk = rest[0] if rest else s
             q = normal((b, h, s, d), dtype)
-            k, v = normal((b, kh, s, d), dtype), normal((b, kh, s, d), dtype)
+            k, v = normal((b, kh, sk, d), dtype), normal((b, kh, sk, d), dtype)
             got = attention_into_sentinel(q, k, v, causal).float()
             want = fa_ref.flash_attention(q, k, v, causal=causal).float()
             err = max_abs_err(got, want)
             assert tol_excess(got, want, atol, rtol) <= 0, (
-                "flash_attention", b, h, kh, s, d, causal, dtype, err)
+                "flash_attention", b, h, kh, s, sk, d, causal, dtype, err)
             worst[f"flash_attention_{name}"] = max(
                 worst.get(f"flash_attention_{name}", 0.0), err)
         for b, h, kh, s, d in ((4, 1, 1, 64, 16), (4, 12, 2, 544, 128),
-                               (4, 6, 6, 100, 32), (4, 6, 1, 5000, 64)):
+                               (4, 6, 6, 100, 32), (4, 6, 1, 5000, 64),
+                               (4, 32, 32, 528, 80), (4, 16, 16, 1024, 64)):
             q = normal((b, h, d), dtype)
             k, v = normal((b, kh, s, d), dtype), normal((b, kh, s, d), dtype)
             kv_len = torch.tensor([0, 1, s, int(rng.integers(2, s))],
@@ -942,36 +976,40 @@ def case_join_compact(dev, rng, shape, aggregated: bool) -> dict:
                 bound_ops=8 * s_len * max_t)
 
 
-def case_flash_attention(dev, rng, shape, causal: bool = True) -> dict:
-    """bf16 q, k, v at the launched (B, H, KH, S, D). Bound: the larger of
-    the live products (4 D operations per (query, key) pair under the causal
-    mask) over the bf16 tensor-core rate and q, k, v, out once over the
-    memory rate. Library: SDPA with GQA and the causal mask."""
+def case_flash_attention(dev, rng, shape, causal: bool = True,
+                         sk: int = None) -> dict:
+    """bf16 q at the launched (B, H, KH, S, D), k and v of ``sk`` keys (S
+    unless given; non-causal only). Bound: the larger of the live products
+    (4 D operations per (query, key) pair under the causal mask) over the
+    bf16 tensor-core rate and q, k, v, out once over the memory rate.
+    Library: SDPA with GQA (and the causal mask)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     b, h, kh, s_len, d = shape
+    sk = sk or s_len
 
     def normal(*sh):
         return torch.tensor(rng.normal(size=sh).astype(np.float32),
                             device=dev).to(torch.bfloat16)
 
-    q, k, v = normal(b, h, s_len, d), normal(b, kh, s_len, d), \
-        normal(b, kh, s_len, d)
-    pairs = s_len * (s_len + 1) // 2 if causal else s_len * s_len
+    q, k, v = normal(b, h, s_len, d), normal(b, kh, sk, d), \
+        normal(b, kh, sk, d)
+    pairs = s_len * (s_len + 1) // 2 if causal else s_len * sk
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(wrapper=lambda: fa_ops.flash_attention(q, k, v, causal=causal),
                 plain=lambda: fa_ref.flash_attention(q, k, v, causal=causal),
                 library=lambda: sdpa(q, k, v, is_causal=causal,
                                      enable_gqa=True),
-                bound_bytes=2 * (2 * b * h * s_len * d + 2 * b * kh * s_len * d),
+                bound_bytes=2 * (2 * b * h * s_len * d + 2 * b * kh * sk * d),
                 bound_ops=4 * b * h * d * pairs,
                 ops_per_s=BF16_TENSOR_OPS_PER_S,
                 tolerance=FLASH_TOL[torch.bfloat16])
 
 
-def case_flash_decode(dev, rng, shape) -> dict:
+def case_flash_decode(dev, rng, shape, live: int = None) -> dict:
     """bf16 q and cache at the launched (B, H, KH, S, D), every row live up
-    to S - 1 keys (the last decode step of the serve phase). Wrapper and
+    to ``live`` keys (S - 1 unless given: the last decode step of the serve
+    phase; S for the cross step over the encoder's frames). Wrapper and
     plain version are the normalised ``decode_attention`` that
     ``attn_decode`` calls. Bound: q, the K/V rows up to kv_len and the
     output once over the memory rate. Library: SDPA with GQA and the
@@ -980,7 +1018,7 @@ def case_flash_decode(dev, rng, shape) -> dict:
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode import ref as fd_ref
     b, h, kh, s_len, d = shape
-    live = s_len - 1
+    live = s_len - 1 if live is None else live
 
     def normal(*sh):
         return torch.tensor(rng.normal(size=sh).astype(np.float32),
@@ -2546,6 +2584,279 @@ def print_sharded(sh: dict, card: str) -> None:
           f"{sp['one_graph_ms']:.4f} ms)")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE, SSM, hybrid, VLM and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+
+def cut_depth(cfg, depth):
+    """``cfg`` with ``depth`` superlayers (all of them when None)."""
+    if depth is None or depth >= cfg.superlayer_repeat:
+        return cfg
+    return dataclasses.replace(cfg, superlayer_repeat=depth,
+                               n_layers=depth * len(cfg.block_pattern))
+
+
+def attention_calls(cfg) -> tuple:
+    """(flash_attention launches of one prefill, flash_decode launches of
+    one decode step): a decoder's attention blocks; an enc-dec's encoder
+    layers plus its decoder's self and cross attention."""
+    if cfg.is_encdec:
+        return cfg.n_enc_layers + 2 * cfg.superlayer_repeat, \
+            2 * cfg.superlayer_repeat
+    n = cfg.superlayer_repeat * sum(kind in ("dense", "moe", "shared_attn")
+                                    for kind in cfg.block_pattern)
+    return n, n
+
+
+class plain_attention:
+    """For a comparison only: ``flash_attention`` and ``flash_decode``'s
+    wrappers bound to their plain versions while the block is open (the
+    models look the wrappers up at each call), restored after. With
+    ``float32``, the attention's plain version runs on float32 copies of
+    q, k and v and rounds its output once: the same function with other
+    rounding, which measures how far the model carries a rounding step of
+    the attention."""
+
+    def __init__(self, float32: bool = False):
+        self.float32 = float32
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.flash_decode import ops as fd_ops
+        from repro_torch.kernels.flash_decode import ref as fd_ref
+        self.saved = [(fa_ops, "flash_attention", fa_ops.flash_attention),
+                      (fd_ops, "decode_attention", fd_ops.decode_attention)]
+        up = (lambda t: t.float()) if self.float32 else (lambda t: t)
+        fa_ops.flash_attention = (
+            lambda q, k, v, causal=True, scale=None, **_: fa_ref
+            .flash_attention(up(q), up(k), up(v), causal=causal,
+                             scale=scale).to(q.dtype))
+        fd_ops.decode_attention = fd_ref.decode_attention
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def family_steps(api, params, batch: dict, max_len: int, toks) -> list:
+    """Logits of a prefill and of one decode step a column of ``toks``."""
+    lg, caches, pos = api.prefill(params, batch, max_len=max_len)
+    out = [lg]
+    for i in range(toks.shape[1]):
+        lg, caches = api.decode(params, caches, pos + i, {"token": toks[:, i]})
+        out.append(lg)
+    return out
+
+
+def teacher_forced(api, params, batch: dict, toks) -> torch.Tensor:
+    """The forward's logits over the prompt and ``toks`` at the positions
+    that a prefill and ``toks.shape[1]`` decode steps score."""
+    from repro_torch.models import encdec, lm
+    cfg, n = api.cfg, toks.shape[1]
+    if cfg.is_encdec:
+        tgt = torch.cat([batch["tokens"], toks.to(torch.int32)], 1)
+        full = encdec.forward(params, cfg, batch["embeds"], tgt)
+    elif "embeds" in batch:
+        seq = torch.cat([batch["embeds"].to(cfg.compute_dtype),
+                         params["embed"][toks].to(cfg.compute_dtype)], 1)
+        full, _ = lm.forward(params, cfg, embeds=seq)
+    else:
+        seq = torch.cat([batch["tokens"], toks.to(torch.int32)], 1)
+        full, _ = lm.forward(params, cfg, tokens=seq)
+    return full[:, -(n + 1):, :cfg.vocab_size]
+
+
+def family_phase(dev, arch: str, shape: dict) -> dict:
+    """One family at its published width through ``launch/serve.serve``
+    (a short warm-up call, then the measured call with the launch counts
+    set to 0 just before it and read just after); then, on seeded inputs,
+    a prefill and 3 decode steps with the kernels against the same steps
+    with the plain attention versions bound in (``plain_attention``).
+
+    Limits: phase 6's (relative L2 ``DECODE_REL_L2``, max abs
+    ``DECODE_MAX_ABS`` a row), or twice the model's rounding floor where
+    that is larger: the largest distance between the plain run and the
+    same run with the attention in float32 rounded once (two plain
+    versions of one function). With random weights, zamba2's 63 residual
+    blocks carry one bf16 rounding step of the attention to about 10% of
+    the logits (measured on the CPU too), so the floor, not the kernel,
+    sets its limit. The MoE families need ``MOE_ROWS_WITHIN`` of the rows
+    within phase 6's limits: a row whose expert choice flips differs at
+    O(1). For the families without experts, the cached decode against the
+    teacher-forced forward at phase 6's limits, both in float32 compute
+    (the same weights; the kernels' float32 paths), where rounding does
+    not hide a wrong cache position, state or angle (an MoE layer's
+    capacity depends on the tokens in the call, so a decode step does not
+    route as the forward does)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve, serve_inputs
+    from repro_torch.models.model import ModelApi
+
+    full = configs.get_config(arch)
+    cfg = cut_depth(full, shape["depth"])
+    batch, prompt, gen = shape["batch"], shape["prompt_len"], shape["gen"]
+    cuda = dev.type == "cuda"
+    api = ModelApi(cfg)
+    t = time.perf_counter()
+    params = api.init(torch.Generator(dev).manual_seed(SEED))
+    sync(dev)
+    init_s = time.perf_counter() - t
+    weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    serve(cfg, batch, min(prompt, 64), 2, device=dev, params=params)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    toks, t_pre, t_dec = serve(cfg, batch, prompt, gen, device=dev,
+                               params=params)
+    launches, shapes = launch_counts(), launch_shapes()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+    per_prefill, per_step = attention_calls(cfg)
+    if cuda:
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=per_prefill,
+                    flash_decode=per_step * (gen - 1))
+        assert launches == want, (arch, launches, want)
+    assert toks.shape == (batch, gen) and (toks >= 0).all() \
+        and (toks < cfg.vocab_size).all()
+    # kernels against the plain attention versions, step by step
+    inputs, _ = serve_inputs(cfg, batch, prompt, gen, dev)
+    rng = np.random.default_rng(SEED + 20)
+    nxt = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, 3)),
+                       device=dev)
+    max_len = (4 if cfg.is_encdec else prompt) + 4
+    kern = family_steps(api, params, inputs, max_len, nxt)
+    with plain_attention():
+        plain = family_steps(api, params, inputs, max_len, nxt)
+    with plain_attention(float32=True):
+        floor_run = family_steps(api, params, inputs, max_len, nxt)
+
+    def row_errors(a, b):
+        return [logit_errors(x[i], y[i]) for x, y in zip(a, b)
+                for i in range(batch)]
+
+    rows, floor = row_errors(kern, plain), row_errors(floor_run, plain)
+    del plain, floor_run
+    assert all(torch.isfinite(k.float()).all() for k in kern), arch
+    moe = bool(cfg.n_experts)
+    limit = (DECODE_REL_L2, DECODE_MAX_ABS)
+    if not moe:
+        limit = (max(limit[0], 2 * max(r for r, _ in floor)),
+                 max(limit[1], 2 * max(m for _, m in floor)))
+    within = sum(r <= limit[0] and m <= limit[1] for r, m in rows)
+    need = int(np.ceil(MOE_ROWS_WITHIN * len(rows))) if moe else len(rows)
+    assert within >= need, (arch, within, len(rows), limit, rows, floor)
+    errs = None
+    if not moe:
+        api32 = ModelApi(dataclasses.replace(cfg,
+                                             compute_dtype=torch.float32))
+        steps = family_steps(api32, params, inputs, max_len, nxt)
+        forced = teacher_forced(api32, params, inputs, nxt)
+        errs = [logit_errors(k, forced[:, i]) for i, k in enumerate(steps)]
+        del forced, steps
+        assert all(r <= DECODE_REL_L2 and m <= DECODE_MAX_ABS
+                   for r, m in errs), (arch, errs)
+    del kern, params
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.superlayer_repeat,
+                attention_blocks=per_prefill,
+                published_layers=full.superlayer_repeat,
+                d_model=cfg.d_model, init_s=init_s,
+                weights_gib=weight_bytes / 2 ** 30, prefill_ms=1e3 * t_pre,
+                decode_ms_per_token=1e3 * t_dec / max(1, gen - 1),
+                peak_gib=peak, launches=launches, shapes=shapes,
+                vs_plain_worst=[max(r for r, _ in rows),
+                                max(m for _, m in rows)],
+                rounding_floor=[max(r for r, _ in floor),
+                                max(m for _, m in floor)],
+                vs_plain_limit=list(limit),
+                vs_plain_within=[within, len(rows)], vs_forward=errs,
+                sample=toks[0, :8].tolist(), **shape)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for node in tree.values():
+            yield from _tensors(node)
+    elif isinstance(tree, list):
+        for node in tree:
+            yield from _tensors(node)
+    else:
+        yield tree
+
+
+def print_family(f: dict, card: str) -> None:
+    cut = ("" if f["layers"] == f["published_layers"] else
+           f" (depth cut from {f['published_layers']})")
+    inputs = (f"{f['prompt_len']} frames, 4 decoder tokens" if
+              f["arch"].startswith("seamless") else
+              f"{f['prompt_len']} seeded embeddings" if
+              f["arch"].startswith("pixtral") else
+              f"prompt {f['prompt_len']} tokens")
+    print(f"[families] {f['arch']} on {card}: {f['layers']} superlayers"
+          f"{cut}, d_model {f['d_model']}, {f['weights_gib']:.2f} GiB of "
+          f"weights drawn in {f['init_s']:.1f} s; batch {f['batch']}, "
+          f"{inputs}, {f['gen']} tokens: prefill {f['prefill_ms']:.2f} ms, "
+          f"decode {f['decode_ms_per_token']:.3f} ms/token; "
+          f"max_memory_allocated {f['peak_gib']:.2f} GiB")
+    attn = ("no attention block: 0 launches of either attention kernel, as "
+            "expected" if f["attention_blocks"] == 0 else
+            f"largest shapes {json.dumps({k: f['shapes'][k] for k in ('flash_attention', 'flash_decode')})}")
+    forward = ("not compared: MoE capacity depends on the tokens in a call"
+               if f["vs_forward"] is None else
+               f"(float32 compute) {json.dumps(f['vs_forward'])}")
+    print(f"[families] {f['arch']}: launches {json.dumps(f['launches'])}; "
+          f"{attn}; kernels vs plain attention, prefill + 3 steps, "
+          f"{f['vs_plain_within'][0]} of {f['vs_plain_within'][1]} rows "
+          f"within {json.dumps(f['vs_plain_limit'])} (relative L2, max "
+          f"abs), worst {json.dumps(f['vs_plain_worst'])}, rounding floor "
+          f"{json.dumps(f['rounding_floor'])}; cached decode vs "
+          f"teacher-forced forward {forward}; sample {f['sample']}")
+
+
+# phase 10's timing cases, kept under their entry's first row by these keys
+FAMILY_CASES = ("zamba2_prefill", "seamless_encoder", "seamless_cross",
+                "zamba2_decode", "seamless_cross_decode")
+
+
+def family_timing_cases(fam: dict) -> list:
+    """Timed rows at phase 10's new shapes, in ``FAMILY_CASES``' order:
+    ``flash_attention`` at zamba2's prefill (D = 80, causal), seamless's
+    encoder (non-causal) and cross-attention (4 decoder positions over the
+    encoder's frames); ``flash_decode`` at zamba2's last decode step (D =
+    80) and seamless's cross step (every frame live)."""
+    from repro_torch import configs
+    shapes = dict(FAMILIES)
+    z, zs = configs.get_config("zamba2-2.7b"), shapes["zamba2-2.7b"]
+    e, es = (configs.get_config("seamless-m4t-medium"),
+             shapes["seamless-m4t-medium"])
+    zh = (zs["batch"], z.n_heads, z.n_kv_heads)
+    eh = (es["batch"], e.n_heads, e.n_kv_heads)
+    zd, ed, frames = z.resolved_head_dim, e.resolved_head_dim, es["prompt_len"]
+    fmt = "B={} H={} KH={} S={} D={}"
+    zf, ef = fam["zamba2-2.7b"], fam["seamless-m4t-medium"]
+    return [
+        ("flash_attention", zf, "phase 10, zamba2-2.7b prefill (D = 80)",
+         fmt, case_flash_attention, zh + (zs["prompt_len"], zd)),
+        ("flash_attention", ef, "phase 10, seamless-m4t-medium encoder",
+         fmt, functools.partial(case_flash_attention, causal=False),
+         eh + (frames, ed)),
+        ("flash_attention", ef, "phase 10, seamless-m4t-medium "
+         "cross-attention", fmt + f" Sk={frames}",
+         functools.partial(case_flash_attention, causal=False, sk=frames),
+         eh + (4, ed)),
+        ("flash_decode", zf, "phase 10, zamba2-2.7b decode (D = 80)", fmt,
+         case_flash_decode, zh + (zs["prompt_len"] + zs["gen"], zd)),
+        ("flash_decode", ef, "phase 10, seamless-m4t-medium cross decode",
+         fmt, functools.partial(case_flash_decode, live=frames),
+         eh + (frames, ed)),
+    ]
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -2586,6 +2897,25 @@ SHARDED = dict(MAIN, warmup=2, ticks=10, reshard_after=5, exact_rows=512,
                exact_ticks=4, exact_reshard=2)
 SP_DECODE = (SERVE["batch"], 12, 2, SERVE["prompt_len"] + SERVE["gen"], 128)
 SP_KV_LEN = [543, 136, 100, 1, 544, 137, 408, 272]
+# phase 10: each family at its published width, 16 greedy tokens; depth cut
+# to fit the card's 80 GB in bf16 (phi3.5-moe 8 of 32 layers, about 21 GB
+# of weights; dbrx 2 of 40, about 15 GB), the others whole
+FAMILIES = [
+    ("phi3.5-moe-42b-a6.6b", dict(depth=8, batch=8, prompt_len=512, gen=16)),
+    ("dbrx-132b", dict(depth=2, batch=8, prompt_len=512, gen=16)),
+    ("pixtral-12b", dict(depth=None, batch=4, prompt_len=512, gen=16)),
+    ("zamba2-2.7b", dict(depth=None, batch=8, prompt_len=512, gen=16)),
+    ("xlstm-125m", dict(depth=None, batch=8, prompt_len=512, gen=16)),
+    ("seamless-m4t-medium", dict(depth=None, batch=8, prompt_len=1024,
+                                 gen=16)),
+]
+# kernels against the plain attention versions in an MoE family: the share
+# of (row, step) logits that must fall within (DECODE_REL_L2,
+# DECODE_MAX_ABS). The bf16 attention outputs of the two versions differ by
+# a rounding step; where that moves a token's float32 router logits across
+# a tie between its k-th and (k+1)-th expert, the token takes another
+# expert and its row differs at O(1)
+MOE_ROWS_WITHIN = 0.75
 
 
 def main() -> int:
@@ -2768,6 +3098,15 @@ def main() -> int:
     print_sharded(sh, card_line())
     print(f"[sharded] phase 9 in {sharded_s:.1f} s")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    card = card_line()
+    fam = {}
+    for arch, shape in FAMILIES:
+        fam[arch] = family_phase(dev, arch, shape)
+        print_family(fam[arch], card)
+    print(f"[families] phase 10 in {time.perf_counter() - t:.1f} s")
+
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
     timed = [
@@ -2808,6 +3147,9 @@ def main() -> int:
          "phase 9 (sp_decode_attention, one slice's partial)",
          "B={} H={} KH={} S={} D={}", case_flash_decode_partial,
          SP_DECODE[:3] + (SP_DECODE[3] // 4, SP_DECODE[4])),
+        # phase 10's new shapes: head dim 80 (zamba2) and key lengths of
+        # their own (seamless's encoder, cross-attention and cross decode)
+        *family_timing_cases(fam),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
@@ -2869,12 +3211,17 @@ def main() -> int:
     # the second rows: join_compact at the compact phase's real grid,
     # flash_attention at the enriched tick's scorer batch, flash_decode at a
     # long cache, predicate_filter at a full scan of the ring
-    *entries, real_grid, scorer, long_cache, full_scan, sp_slice = measured
-    for entry, second, key in ((real_grid, "join_compact", "real_grid"),
-                               (scorer, "flash_attention", "enriched_tick"),
-                               (long_cache, "flash_decode", "long_cache"),
-                               (full_scan, "predicate_filter", "full_scan"),
-                               (sp_slice, "flash_decode", "sp_decode_slice")):
+    n_family = len(FAMILY_CASES)
+    *entries, real_grid, scorer, long_cache, full_scan, sp_slice = \
+        measured[:-n_family]
+    seconds = [(real_grid, "join_compact", "real_grid"),
+               (scorer, "flash_attention", "enriched_tick"),
+               (long_cache, "flash_decode", "long_cache"),
+               (full_scan, "predicate_filter", "full_scan"),
+               (sp_slice, "flash_decode", "sp_decode_slice")]
+    seconds += [(e, e["name"], key) for e, key in
+                zip(measured[-n_family:], FAMILY_CASES)]
+    for entry, second, key in seconds:
         first = next(e for e in entries if e["name"] == second)
         first[key] = {k: v for k, v in entry.items()
                       if k not in ("name", "route", "source", "replaces")}
@@ -2886,6 +3233,9 @@ def main() -> int:
     for e in entries:
         if e["name"] in sharded:
             e["sharded_launches"] = sharded[e["name"]]
+        if e["name"] in ("flash_attention", "flash_decode"):
+            e["family_launches"] = {a: f["launches"][e["name"]]
+                                    for a, f in fam.items()}
     assert min(sharded.values()) > 0, sharded
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)

@@ -8,7 +8,7 @@ reference's run — after a ring wraparound, for instance. The subscription
 control plane is rebuilt by replaying the same control-plane calls on the
 port's engine; ``load_engine_state`` then installs the device state and the
 few host marks that go with it (``now``, ``size_host``, each channel's last
-execution point). ``params_from_numpy`` carries an LM's initialised
+execution point). ``params_from_numpy`` carries a model's initialised
 parameters across the same way.
 """
 from __future__ import annotations
@@ -80,15 +80,21 @@ def load_engine_state(engine, dataset: R.ActiveDataset,
 
 
 def params_from_numpy(cfg, tree, device: DeviceLike = "cuda"):
-    """The reference's LM parameter tree, as numpy arrays, as the port's
-    parameters on ``device``: the superlayers, stacked on axis 0 in the
-    reference (``models/lm.py``), become the port's list with one tree per
-    depth; ``embed``, ``final_norm`` and ``head`` keep their names. Dtypes
-    carry over (bfloat16 included: numpy holds it as ml_dtypes' bfloat16,
-    which is moved bit for bit). ``jax.random`` cannot be reproduced in
-    torch, so the parity tests carry the reference's initialised parameters
-    across with this."""
+    """The reference's model parameter tree, as numpy arrays, as the port's
+    parameters on ``device``. The trees the reference stacks on axis 0 and
+    scans become the port's lists with one tree per depth: ``layers`` (an
+    LM's superlayers) and an enc-dec's ``dec_layers`` over
+    ``superlayer_repeat``, ``enc_layers`` over ``n_enc_layers``. Every other
+    entry (``embed``, the norms, ``head``, and zamba2's un-stacked
+    ``shared`` block) keeps its name and nesting. Dtypes carry over
+    (bfloat16 included: numpy holds it as ml_dtypes' bfloat16, which is
+    moved bit for bit). ``jax.random`` cannot be reproduced in torch, so the
+    parity tests carry the reference's initialised parameters across with
+    this."""
     dev = resolve_device(device)
+    depth = {"layers": cfg.superlayer_repeat,
+             "dec_layers": cfg.superlayer_repeat,
+             "enc_layers": cfg.n_enc_layers}
 
     def put(a):
         a = np.asarray(a)
@@ -102,10 +108,11 @@ def params_from_numpy(cfg, tree, device: DeviceLike = "cuda"):
             return {k: tmap(fn, v) for k, v in node.items()}
         return fn(node)
 
-    if "shared" in tree:
-        raise NotImplementedError("shared_attn parameters are not ported to "
-                                  "repro_torch yet (ROADMAP Queue 1, item 17)")
-    out = {k: put(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [tmap(lambda a, i=i: put(np.asarray(a)[i]), tree["layers"])
-                     for i in range(cfg.superlayer_repeat)]
+    out = {}
+    for key, node in tree.items():
+        if key in depth:
+            out[key] = [tmap(lambda a, i=i: put(np.asarray(a)[i]), node)
+                        for i in range(depth[key])]
+        else:
+            out[key] = tmap(put, node)
     return out

@@ -5,7 +5,10 @@
 //   models/attention.py _sdpa (attn_impl="flash" there; on the card the
 //   port's _sdpa always launches this kernel).
 // Computes: out[b,h,i] = sum_j softmax_j(scale * q[b,h,i] . k[b,h/G,j]) *
-//   v[b,h/G,j] over the keys j < S (and j <= i when causal), G = H / KH.
+//   v[b,h/G,j] over the keys j < Sk (and j <= i when causal), G = H / KH.
+//   q and out have Sq query rows, k and v their own Sk keys: Sk = Sq when
+//   causal, any Sk when not (the encoder-decoder's cross-attention: Sq
+//   decoder positions over Sk encoder frames).
 //   Inputs float32 or bfloat16, scores, running max m, running sum l and
 //   the PV accumulator in float32, output in the input type. A masked score
 //   contributes p = 0, so a row with no live key keeps l = 0 and its output
@@ -39,6 +42,11 @@
 //   * Persistent blocks: two or three a SM (by occupancy) walk the tiles,
 //     so one tile's loads overlap another's products; causal tiles are
 //     walked longest first when S is a multiple of 64.
+// Head dims 16, 32, 64, 80 and 128. At D = 80 (zamba2) the bf16 kernel runs
+//   the D = 128 plan over tensor maps whose rows are 80 wide: TMA fills the
+//   boxes' columns 80-127 with zeros on every load (so they add nothing to
+//   Q K^T and give zero output columns) and clips them on the store, and
+//   the scale is 80^-0.5 from the wrapper; nothing is padded in memory.
 // float32 keeps the CUDA-core kernel below (products in float32 on the
 //   CUDA cores, 32-row tiles per (b, h)): its 3e-5 tolerance rules out
 //   TF32, and no path on the card launches float32 attention (the serving
@@ -91,8 +99,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     f32_attention_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out,
-                         int heads, int kv_heads, int s_len, float scale,
-                         int causal) {
+                         int heads, int kv_heads, int s_len, int s_keys,
+                         float scale, int causal) {
   constexpr int KP = D + 4;            // padded K row
   constexpr int DL = (D + 31) / 32;    // output dims per lane
   extern __shared__ float4 smem4[];
@@ -108,7 +116,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t q_base = static_cast<int64_t>(bh) * s_len * D;
   const int64_t kv_base =
-      (static_cast<int64_t>(b) * kv_heads + kh) * s_len * D;
+      (static_cast<int64_t>(b) * kv_heads + kh) * s_keys * D;
 
   for (int i = tid; i < kTQ * D; i += blockDim.x) {
     const int r = q0 + i / D;
@@ -126,14 +134,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* p_rows = ps + warp * kRowsPerWarp * kTK;
   const int row0 = q0 + warp * kRowsPerWarp;
   // the keys any row of this block sees: up to the diagonal when causal
-  const int kv_end = causal ? min(s_len, q0 + kTQ) : s_len;
+  const int kv_end = causal ? min(s_len, q0 + kTQ) : s_keys;
   for (int k0 = 0; k0 < kv_end; k0 += kTK) {
     __syncthreads();  // the previous tile is consumed (and Q is staged)
     for (int i = tid; i < kTK * D; i += blockDim.x) {
       const int r = i / D, d = i % D, key = k0 + r;
       const int64_t at = kv_base + static_cast<int64_t>(key) * D + d;
-      ks[r * KP + d] = key < s_len ? k[at] : 0.f;
-      vs[i] = key < s_len ? v[at] : 0.f;
+      ks[r * KP + d] = key < s_keys ? k[at] : 0.f;
+      vs[i] = key < s_keys ? v[at] : 0.f;
     }
     __syncthreads();
     float s[kRowsPerWarp];
@@ -152,7 +160,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const int key = k0 + lane;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const bool live = key < s_len && (!causal || key <= row0 + r);
+      const bool live = key < s_keys && (!causal || key <= row0 + r);
       const float sc = live ? s[r] * scale : kMasked;
       const float m_new = fmaxf(m[r], warp_max(sc));
       const float p = live ? expf(sc - m_new) : 0.f;
@@ -440,8 +448,8 @@ struct Tile {
 // are taken by diagonal band, the longest band first, and within a band
 // the G heads of one slab side by side (they share K/V in L2).
 __device__ __forceinline__ Tile tile_at(int t, int n_slabs, int tiles, int gs,
-                                        int s_len, int g, int causal,
-                                        int bn) {
+                                        int s_len, int s_keys, int g,
+                                        int causal, int bn) {
   int slab, m;
   if (causal && s_len % kRows == 0) {
     const int per_head = s_len / kRows, band = n_slabs * g;
@@ -453,7 +461,7 @@ __device__ __forceinline__ Tile tile_at(int t, int n_slabs, int tiles, int gs,
     m = t % tiles;
   }
   const int row0 = m * kRows;
-  int kv_end = s_len;
+  int kv_end = s_keys;
   if (causal) {
     const int last = min(row0 + kRows, gs) - 1;
     if (row0 / s_len == last / s_len) kv_end = last % s_len + 1;
@@ -467,8 +475,8 @@ __global__ void __launch_bounds__(kThreads, Plan<D, BN>::MIN_BLOCKS)
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
                           const __grid_constant__ CUtensorMap map_o,
-                          int n_slabs, int tiles, int gs, int s_len, int g,
-                          float scale_log2, int causal) {
+                          int n_slabs, int tiles, int gs, int s_len,
+                          int s_keys, int g, float scale_log2, int causal) {
   using P = Plan<D, BN>;
   constexpr int SW = P::SW;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -504,7 +512,8 @@ __global__ void __launch_bounds__(kThreads, Plan<D, BN>::MIN_BLOCKS)
     if (tid != kConsumers) return;
     int qs = 0, qph = 0, ks = 0, kph = 0;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      const Tile tl = tile_at(t, n_slabs, tiles, gs, s_len, g, causal, BN);
+      const Tile tl = tile_at(t, n_slabs, tiles, gs, s_len, s_keys, g, causal,
+                              BN);
       bar_wait(q_empty(qs), qph ^ 1);
       bar_expect(q_full(qs), P::Q_BYTES);
       const uint32_t qd = base + P::Q_OFF + qs * P::Q_BYTES;
@@ -535,7 +544,8 @@ __global__ void __launch_bounds__(kThreads, Plan<D, BN>::MIN_BLOCKS)
   const int r_lo = warp * 16 + lane / 4, col = 2 * (lane % 4);
   int qs = 0, qph = 0, ks = 0, kph = 0;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
-    const Tile tl = tile_at(t, n_slabs, tiles, gs, s_len, g, causal, BN);
+    const Tile tl = tile_at(t, n_slabs, tiles, gs, s_len, s_keys, g, causal,
+                            BN);
     const int pos[2] = {(tl.row0 + r_lo) % s_len, (tl.row0 + r_lo + 8) % s_len};
     float o[P::OC][P::ON / 2], sc[BN / 2];
     float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
@@ -571,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, Plan<D, BN>::MIN_BLOCKS)
       for (int i = 0; i < BN / 2; ++i) {
         const int key = j * BN + 8 * (i / 4) + col + (i % 2);
         const int h = (i / 2) % 2;
-        const bool live = key < s_len && (!causal || key <= pos[h]);
+        const bool live = key < s_keys && (!causal || key <= pos[h]);
         sc[i] = live ? sc[i] * scale_log2 : -INFINITY;
         mx[h] = fmaxf(mx[h], sc[i]);
       }
@@ -694,8 +704,8 @@ int setup(int (&resident)[kMaxDevices], Kernel kernel, int threads,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int batch, int heads, int kv_heads, int s_len, float scale,
-               int causal, cudaStream_t stream) {
+               int batch, int heads, int kv_heads, int s_len, int s_keys,
+               float scale, int causal, cudaStream_t stream) {
   static int resident[kMaxDevices];
   const size_t bytes = smem_floats<D>() * sizeof(float);
   int blocks = 0;  // the grid follows the shape here
@@ -710,7 +720,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   f32_attention_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), heads, kv_heads,
-      s_len, scale, causal);
+      s_len, s_keys, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -741,17 +751,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// a (slabs, rows, D) bf16 tensor in boxes of (1, box_rows, SW / 2), swizzled;
-// rows past the slab's end read as zeros and are not written
+// a (slabs, rows, d) bf16 tensor in boxes of (1, box_rows, SW / 2) of the
+// plan of width D >= d, swizzled; rows past the slab's end and columns past
+// d read as zeros and are not written
 template <int D, int BN>
 bool encode(EncodeTiled fn, CUtensorMap* map, const void* p, int64_t slabs,
-            int64_t rows, int box_rows) {
+            int64_t rows, int box_rows, int d) {
   using P = Plan<D, BN>;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(slabs)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(rows) * D * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(P::BOX),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t step[3] = {1, 1, 1};
@@ -761,10 +772,11 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* p, int64_t slabs,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the plan of width D over tensors whose rows are d <= D wide
 template <int D, int BN>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int batch, int heads, int kv_heads, int s_len, float scale,
-                int causal, cudaStream_t stream) {
+                int batch, int heads, int kv_heads, int s_len, int s_keys,
+                int d, float scale, int causal, cudaStream_t stream) {
   using P = Plan<D, BN>;
   static int resident[kMaxDevices];
   int blocks = 0;
@@ -780,52 +792,57 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv, mo;
-  if (!encode<D, BN>(fn, &mq, q, slabs, gs, kRows) ||
-      !encode<D, BN>(fn, &mk, k, slabs, s_len, BN) ||
-      !encode<D, BN>(fn, &mv, v, slabs, s_len, BN) ||
-      !encode<D, BN>(fn, &mo, out, slabs, gs, kRows))
+  if (!encode<D, BN>(fn, &mq, q, slabs, gs, kRows, d) ||
+      !encode<D, BN>(fn, &mk, k, slabs, s_keys, BN, d) ||
+      !encode<D, BN>(fn, &mv, v, slabs, s_keys, BN, d) ||
+      !encode<D, BN>(fn, &mo, out, slabs, gs, kRows, d))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t total = slabs * tiles;
   const int grid = static_cast<int>(total < blocks ? total : blocks);
   bf16_attention_kernel<D, BN><<<grid, kThreads, P::SMEM, stream>>>(
       mq, mk, mv, mo, static_cast<int>(slabs), static_cast<int>(tiles),
-      static_cast<int>(gs), s_len, g, scale * kLog2e, causal);
+      static_cast<int>(gs), s_len, s_keys, g, scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 at D = 80 takes the D = 128 plan (the TMA maps are 80 wide); the key
+// tile is 16 keys where Sk <= 16
 template <int D>
 int launch_d(int dtype, const void* q, const void* k, const void* v,
              void* out, int batch, int heads, int kv_heads, int s_len,
-             float scale, int causal, cudaStream_t stream) {
+             int s_keys, float scale, int causal, cudaStream_t stream) {
+  constexpr int DP = D == 80 ? 128 : D;
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, out, batch, heads, kv_heads, s_len, scale,
-                         causal, stream);
-  if (s_len <= 16)
-    return launch_bf16<D, 16>(q, k, v, out, batch, heads, kv_heads, s_len,
-                              scale, causal, stream);
-  return launch_bf16<D, 64>(q, k, v, out, batch, heads, kv_heads, s_len,
-                            scale, causal, stream);
+    return launch_f32<D>(q, k, v, out, batch, heads, kv_heads, s_len, s_keys,
+                         scale, causal, stream);
+  if (s_keys <= 16)
+    return launch_bf16<DP, 16>(q, k, v, out, batch, heads, kv_heads, s_len,
+                               s_keys, D, scale, causal, stream);
+  return launch_bf16<DP, 64>(q, k, v, out, batch, heads, kv_heads, s_len,
+                             s_keys, D, scale, causal, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, out (B, H, S, D); k, v (B, KH, S, D);
-// all contiguous, and in bfloat16 16-byte aligned (TMA). Returns the
-// launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. q, out (B, H, Sq, D); k, v (B, KH, Sk,
+// D), Sk >= 1, and Sk = Sq when causal; all contiguous, and in bfloat16
+// 16-byte aligned (TMA). Returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int heads, int kv_heads, int s_len,
-                                      int head_dim, int dtype, float scale,
-                                      int causal, void* stream) {
+                                      int s_keys, int head_dim, int dtype,
+                                      float scale, int causal, void* stream) {
   if (batch <= 0 || heads <= 0 || s_len <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1))
+  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1) ||
+      s_keys <= 0 || (causal && s_keys != s_len))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 16: return launch_d<16>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, scale, causal, st);
-    case 32: return launch_d<32>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, scale, causal, st);
-    case 64: return launch_d<64>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, scale, causal, st);
-    case 128: return launch_d<128>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, scale, causal, st);
+    case 16: return launch_d<16>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
+    case 32: return launch_d<32>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
+    case 64: return launch_d<64>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
+    case 80: return launch_d<80>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
+    case 128: return launch_d<128>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,9 +8,10 @@
 // Computes: for each (b, h), over the keys j < kv_len[b] of KV head h / G:
 //   m = max_j s_j with s_j = scale * q[b,h] . k[b,h/G,j], l = sum_j e^(s_j-m),
 //   acc = sum_j e^(s_j-m) v[b,h/G,j]; all float32 whatever the input type
-//   (float32 or bfloat16). Where no key is live: m = -inf, l = 0, acc = 0,
-//   and no NaN (the reference's empty-shard contract). The normalised entry
-//   writes acc / l (0 where l = 0) in q's type instead of (acc, m, l).
+//   (float32 or bfloat16), D in {16, 32, 64, 80, 128}. Where no key is
+//   live: m = -inf, l = 0, acc = 0, and no NaN (the reference's empty-shard
+//   contract). The normalised entry writes acc / l (0 where l = 0) in q's
+//   type instead of (acc, m, l).
 // Bound on the H100: the bytes. Each live K/V row is read once (2*D*bytes
 //   per key and KV head); the arithmetic is 4*D*G operations per key, a
 //   third of what the CUDA cores' float32 rate allows at G = 6 and the
@@ -183,6 +184,44 @@ __device__ __forceinline__ void load_row(const T* p, float* x) {
   }
 }
 
+// A warp holds up to 8 query heads and scores a tile's 32 keys in the
+// layout of an m16n8k16 product's accumulator: lane 4 r + c holds head r's
+// scores of the keys 4 (2 c + e) + i, i < 4, e < 2. In bf16 the product is
+// mma.sync (bf16 x bf16 products are exact and summed in float32, as on the
+// CUDA cores), with the heads as A's rows (the other 8 rows zero), K read
+// by ldmatrix, n-tile i holding row i of every K block; in float32 each
+// lane sums its 8 keys on the CUDA cores. PV stays on the CUDA cores, P in
+// float32. K lands as 8 blocks of 4 rows, each block 16 bytes past a
+// multiple of 128: the 8 rows that one ldmatrix (or the 4 lanes of a head)
+// read fall on distinct bank groups (a row is a multiple of 32 bytes, so
+// 4 rows are a multiple of 128 at every head dim), with 9 bulk copies a tile.
+template <typename T, int D>
+struct Plan {
+  static constexpr int KSTEPS = D / 16;               // mma k-steps a row
+  // PV dims of a lane, consecutive: 1, 2 or 4, so
+  // that D / DL <= 32 lanes cover a row (D = 80: 20 lanes of 4)
+  static constexpr int DL = D <= 32 ? 1 : D <= 64 ? 2 : 4;
+  static_assert(D % 16 == 0 && D % DL == 0 && D / DL <= 32, "head dim");
+  static constexpr int ROW = D * sizeof(T);           // bytes of a K/V row
+  static constexpr int K_BLK = 4 * ROW + 16;          // 4 rows, padded
+  static constexpr int K_BYTES = 8 * K_BLK;
+  static constexpr int V_BYTES = kTK * ROW;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  // tiles in the ring: kRingBytes of K and V, 2 to 4 stages (4 at D = 128
+  // in bf16, 2 in float32)
+  static constexpr int STAGES_BY_BYTES = kRingBytes / STAGE_BYTES;
+  static constexpr int STAGES =
+      STAGES_BY_BYTES < 2 ? 2 : (STAGES_BY_BYTES > 4 ? 4 : STAGES_BY_BYTES);
+  static constexpr int RING_OFF = 128;                // after the mbarriers
+  // then per (group, head) p (32 floats); once every tile has been read,
+  // the partials acc (D floats a slot), m and l take the ring's place, so
+  // that three blocks fit on an SM
+  static constexpr int P_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static size_t bytes(int slots) {
+    return P_OFF + static_cast<size_t>(slots) * kTK * sizeof(float);
+  }
+};
+
 // The merge of head h's partials (slot w * G + h of every group w in every
 // rank's shared memory, read through distributed shared memory) by the
 // algebra of ref.merge_partials, the empty partial kept exact; writes output
@@ -193,7 +232,7 @@ __device__ __forceinline__ void merge_head(int h, int g, int groups, int lane,
                                            float* acc_s, int64_t row,
                                            void* out, float* m_out,
                                            float* l_out, int normalized) {
-  constexpr int DL = D >= 32 ? D / 32 : 1;
+  constexpr int DL = Plan<T, D>::DL;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_split = static_cast<int>(cluster.num_blocks());
   float mm = -INFINITY;
@@ -240,40 +279,6 @@ __device__ __forceinline__ void merge_head(int h, int g, int groups, int lane,
 // ---------------------------------------------------------------------------
 // the kernel
 // ---------------------------------------------------------------------------
-
-// A warp holds up to 8 query heads and scores a tile's 32 keys in the
-// layout of an m16n8k16 product's accumulator: lane 4 r + c holds head r's
-// scores of the keys 4 (2 c + e) + i, i < 4, e < 2. In bf16 the product is
-// mma.sync (bf16 x bf16 products are exact and summed in float32, as on the
-// CUDA cores), with the heads as A's rows (the other 8 rows zero), K read
-// by ldmatrix, n-tile i holding row i of every K block; in float32 each
-// lane sums its 8 keys on the CUDA cores. PV stays on the CUDA cores, P in
-// float32. K lands as 8 blocks of 4 rows, each block 16 bytes past a
-// multiple of 128: the 8 rows that one ldmatrix (or the 4 lanes of a head)
-// read fall on distinct bank groups, with 9 bulk copies a tile.
-template <typename T, int D>
-struct Plan {
-  static constexpr int KSTEPS = D / 16;               // mma k-steps a row
-  static constexpr int DL = D >= 32 ? D / 32 : 1;     // PV dims of a lane
-  static constexpr int ROW = D * sizeof(T);           // bytes of a K/V row
-  static constexpr int K_BLK = 4 * ROW + 16;          // 4 rows, padded
-  static constexpr int K_BYTES = 8 * K_BLK;
-  static constexpr int V_BYTES = kTK * ROW;
-  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
-  // tiles in the ring: kRingBytes of K and V, 2 to 4 stages (4 at D = 128
-  // in bf16, 2 in float32)
-  static constexpr int STAGES_BY_BYTES = kRingBytes / STAGE_BYTES;
-  static constexpr int STAGES =
-      STAGES_BY_BYTES < 2 ? 2 : (STAGES_BY_BYTES > 4 ? 4 : STAGES_BY_BYTES);
-  static constexpr int RING_OFF = 128;                // after the mbarriers
-  // then per (group, head) p (32 floats); once every tile has been read,
-  // the partials acc (D floats a slot), m and l take the ring's place, so
-  // that three blocks fit on an SM
-  static constexpr int P_OFF = RING_OFF + STAGES * STAGE_BYTES;
-  static size_t bytes(int slots) {
-    return P_OFF + static_cast<size_t>(slots) * kTK * sizeof(float);
-  }
-};
 
 // warps a group, heads a warp (the last warp may hold fewer) and groups a
 // block: 8 heads a warp at most; two groups where one warp holds the whole
@@ -669,6 +674,7 @@ int launch_d(int d, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, kv_len, out, m, l, batch, heads, kv_heads, s_len, scale, n_split, normalized, stream);
     case 32: return launch<T, 32>(q, k, v, kv_len, out, m, l, batch, heads, kv_heads, s_len, scale, n_split, normalized, stream);
     case 64: return launch<T, 64>(q, k, v, kv_len, out, m, l, batch, heads, kv_heads, s_len, scale, n_split, normalized, stream);
+    case 80: return launch<T, 80>(q, k, v, kv_len, out, m, l, batch, heads, kv_heads, s_len, scale, n_split, normalized, stream);
     case 128: return launch<T, 128>(q, k, v, kv_len, out, m, l, batch, heads, kv_heads, s_len, scale, n_split, normalized, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -680,6 +686,7 @@ int clusters_d(int d, int g, int n_split, int* count) {
     case 16: return clusters<T, 16>(g, n_split, count);
     case 32: return clusters<T, 32>(g, n_split, count);
     case 64: return clusters<T, 64>(g, n_split, count);
+    case 80: return clusters<T, 80>(g, n_split, count);
     case 128: return clusters<T, 128>(g, n_split, count);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -698,6 +705,7 @@ int block_d(int d, int g, int* threads, int* smem) {
     case 16: return dispatch<T, 16>(g, take);
     case 32: return dispatch<T, 32>(g, take);
     case 64: return dispatch<T, 64>(g, take);
+    case 80: return dispatch<T, 80>(g, take);
     case 128: return dispatch<T, 128>(g, take);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
         lib.spatial_match_stacked_launch.restype = i
         lib.join_compact_launch.argtypes = [p] * 10 + [i, i, i, i, i, p]
         lib.join_compact_launch.restype = i
-        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 6 + [f, i, p]
+        lib.flash_attention_launch.argtypes = [p] * 4 + [i] * 7 + [f, i, p]
         lib.flash_attention_launch.restype = i
         lib.flash_decode_launch.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
         lib.flash_decode_launch.restype = i

@@ -4,12 +4,14 @@ _sdpa`` calls it.
 ``flash_attention`` picks the version by the tensor's device: a CPU tensor
 runs the plain version in ``ref.py``, a CUDA tensor launches
 ``csrc/flash_attention.cu`` (or raises): in bf16 a Hopper kernel on the
-tensor cores fed by TMA, in float32 a CUDA-core kernel. The kernel masks
-the ragged end of S itself, so nothing is padded; the wrapper still refuses
-a non-causal S that is not a multiple of the reference's tile (``tq``,
-``tk`` default to min(256, S)), so both packages accept the same inputs.
-``check_inputs`` holds what the kernel takes, 16-byte-aligned tensors
-included.
+tensor cores fed by TMA, in float32 a CUDA-core kernel. k and v may have
+their own length Sk when the attention is not causal (the encoder-decoder's
+cross-attention); causal attention takes Sk = Sq. The kernel masks the
+ragged ends of both lengths itself, so nothing is padded and any length is
+taken, as by the reference's default path (its einsum plain version); the
+reference's Pallas wrapper alone refuses a non-causal S off its tile, and
+``tq`` / ``tk`` are taken for its signature and not used. ``check_inputs``
+holds what the kernel takes, 16-byte-aligned tensors included.
 """
 from __future__ import annotations
 
@@ -20,14 +22,12 @@ import torch
 
 from repro_torch.kernels.flash_attention import ref
 
-DEFAULT_TQ = 256
-DEFAULT_TK = 256
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ALIGN = 16          # bytes: TMA's rule for a tensor's base address
 
 # launches of the CUDA kernel in this process (never the plain version), and
-# the largest (B, H, KH, S, D) it launched
+# the largest (B, H, KH, S, D) it launched (S the query length)
 LAUNCHES = 0
 SHAPE = None
 
@@ -36,35 +36,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: Optional[float] = None,
                     tq: Optional[int] = None,
                     tk: Optional[int] = None) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, KH, S, D) -> (B, H, S, D) in q's dtype."""
-    s, d = q.shape[2], q.shape[3]
-    scale = scale if scale is not None else d ** -0.5
-    tq = tq or min(DEFAULT_TQ, s)
-    tk = tk or min(DEFAULT_TK, s)
-    if s % max(tq, tk) and not causal:
-        raise ValueError("non-causal flash_attention requires tile-aligned S")
+    """q (B, H, Sq, D), k/v (B, KH, Sk, D) (Sk = Sq when causal) ->
+    (B, H, Sq, D) in q's dtype."""
+    scale = scale if scale is not None else q.shape[3] ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return _launch(q, k, v, causal, float(scale))
 
 
-def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool = True) -> tuple:
     """Raise ValueError unless the kernel takes (q, k, v); return (B, H, KH,
-    S, D). It takes float32 or bfloat16, D in ``HEAD_DIMS``, H a multiple of
-    KH, contiguous tensors of one dtype on one device, each starting on a
-    16-byte boundary (the bf16 kernel's TMA loads need it; float32 keeps the
-    same rule)."""
+    Sq, D). It takes float32 or bfloat16, D in ``HEAD_DIMS``, H a
+    multiple of KH, k and v of one length Sk (Sq when causal), contiguous
+    tensors of one dtype on one device, each starting on a 16-byte boundary
+    (the bf16 kernel's TMA loads need it; float32 keeps the same rule)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q and k must be 4-d, got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     b, h, s, d = q.shape
-    kh = k.shape[1]
+    kh, sk = k.shape[1], k.shape[2]
+    if causal and sk != s:
+        raise ValueError(f"flash_attention: causal attention needs k of q's "
+                         f"length {s}, got {tuple(k.shape)}")
     if q.dtype not in DTYPES or d not in HEAD_DIMS or kh == 0 or h % kh:
         raise ValueError(f"flash_attention: q must be float32 or bfloat16 "
                          f"with D in {HEAD_DIMS} and H a multiple of KH, got "
                          f"{q.dtype} {tuple(q.shape)}, KH={kh}")
-    for name, t, shape in (("q", q, (b, h, s, d)), ("k", k, (b, kh, s, d)),
-                           ("v", v, (b, kh, s, d))):
+    for name, t, shape in (("q", q, (b, h, s, d)), ("k", k, (b, kh, sk, d)),
+                           ("v", v, (b, kh, sk, d))):
         if (t.device != q.device or t.dtype != q.dtype
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"flash_attention: {name} must be a contiguous "
@@ -83,7 +83,8 @@ def _launch(q, k, v, causal: bool, scale: float,
     card-only tests pass a view whose neighbours hold a sentinel)."""
     global LAUNCHES, SHAPE
     from repro_torch.kernels import _build
-    b, h, kh, s, d = check_inputs(q, k, v)
+    b, h, kh, s, d = check_inputs(q, k, v, causal)
+    sk = k.shape[2]
     if out is None:
         out = torch.empty_like(q)
     elif (out.device != q.device or out.dtype != q.dtype
@@ -93,12 +94,14 @@ def _launch(q, k, v, causal: bool, scale: float,
                          f"{ALIGN}-byte-aligned tensor like q")
     if out.numel() == 0:
         return out
+    if sk == 0:                 # no key: every row's output is 0
+        return out.zero_()
     lib = _build.library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kh, s, d, DTYPES[q.dtype], scale, int(bool(causal)),
+            kh, s, sk, d, DTYPES[q.dtype], scale, int(bool(causal)),
             ctypes.c_void_p(stream))
     _build.check(code, "flash_attention")
     LAUNCHES += 1

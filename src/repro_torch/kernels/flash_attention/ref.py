@@ -19,7 +19,9 @@ import torch
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, KH, S, D), H % KH == 0 -> (B, H, S, D)."""
+    """q (B, H, Sq, D), k/v (B, KH, Sk, D), H % KH == 0 -> (B, H, Sq, D).
+    Sk is k's own length (the reference's ``l``); the causal mask takes
+    Sk = Sq."""
     b, h, s, d = q.shape
     g = h // k.shape[1]
     scale = scale if scale is not None else d ** -0.5

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels.flash_decode import ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 32              # keys per tile; a block's share is whole tiles
 CLUSTERS = (1, 2, 4, 8, 16)   # blocks a cluster; 16 only where the card takes it

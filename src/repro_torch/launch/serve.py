@@ -2,7 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --batch 8 --prompt-len 512 --gen 32                 # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+Every architecture id serves: token prompts for the decoder-only LMs,
+seeded embeddings for the ``embed`` frontend (pixtral), seeded frames and 4
+decoder tokens for the encoder-decoder (seamless).
 """
 from __future__ import annotations
 
@@ -34,21 +39,41 @@ def prefill_scores(params, cfg, tokens: torch.Tensor,
     return torch.mean(logits, dim=-1).float()
 
 
+def serve_inputs(cfg, batch: int, prompt_len: int, gen: int, dev):
+    """The reference's seeded serving inputs (numpy seed 0, the same draws
+    in the same order): (prefill batch, cache length). Token frontends get
+    (batch, prompt_len) int32 prompts; the ``embed`` frontend float32
+    (batch, prompt_len, d_model) embeddings; an enc-dec model that many
+    frames and 4 decoder tokens, with a cache of 4 + gen."""
+    rng = np.random.default_rng(0)
+
+    def embeds():
+        return torch.tensor(rng.normal(size=(batch, prompt_len, cfg.d_model))
+                            .astype(np.float32), device=dev)
+
+    def tokens(n):
+        return torch.tensor(rng.integers(0, cfg.vocab_size, (batch, n))
+                            .astype(np.int32), device=dev)
+
+    if cfg.is_encdec:
+        return {"embeds": embeds(), "tokens": tokens(4)}, 4 + gen
+    if cfg.frontend == "embed":
+        return {"embeds": embeds()}, prompt_len + gen
+    return {"tokens": tokens(prompt_len)}, prompt_len + gen
+
+
 def serve(cfg, batch: int, prompt_len: int, gen: int, greedy: bool = True,
           device: DeviceLike = "cuda", params=None):
-    """Prefill ``batch`` seeded random prompts, then decode ``gen`` tokens
-    greedily. Parameters come from ``torch.Generator`` seeded 0 on the
-    device (the reference seeds ``jax.random.key(0)``; the two draw
+    """Prefill ``batch`` seeded inputs (``serve_inputs``), then decode
+    ``gen`` tokens greedily. Parameters come from ``torch.Generator`` seeded
+    0 on the device (the reference seeds ``jax.random.key(0)``; the two draw
     different numbers) unless ``params`` are given. Returns (tokens
     (batch, gen) int64 numpy, prefill seconds, decode seconds)."""
     dev = resolve_device(device)
     api = ModelApi(cfg)
     if params is None:
         params = api.init(torch.Generator(dev).manual_seed(0))
-    rng = np.random.default_rng(0)
-    prompts = torch.tensor(rng.integers(0, cfg.vocab_size,
-                                        (batch, prompt_len)).astype(np.int32),
-                           device=dev)
+    pf_batch, max_len = serve_inputs(cfg, batch, prompt_len, gen, dev)
     decode = build_decode_step(api)
 
     def sync():
@@ -57,8 +82,7 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, greedy: bool = True,
 
     sync()
     t0 = time.perf_counter()
-    logits, caches, pos = api.prefill(params, {"tokens": prompts},
-                                      max_len=prompt_len + gen)
+    logits, caches, pos = api.prefill(params, pf_batch, max_len=max_len)
     sync()
     t_prefill = time.perf_counter() - t0
     tok = torch.argmax(logits, -1)
@@ -75,7 +99,7 @@ def serve(cfg, batch: int, prompt_len: int, gen: int, greedy: bool = True,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b", choices=configs.ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

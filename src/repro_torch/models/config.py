@@ -3,9 +3,7 @@
 The same fields as the reference's ``models/config.py`` (so a config reads
 the same in both packages), with ``torch`` dtypes in place of ``jnp`` ones. A
 model is ``superlayer_repeat`` superlayers, each applying ``block_pattern``
-in order. The port runs the dense decoder-only LM (``("dense",)`` blocks);
-the other block kinds raise ``NotImplementedError`` where they are built
-(ROADMAP Queue 1, item 17). Fields that steer the reference's mesh and
+in order. Fields that steer the reference's mesh and
 compiler (``remat``, ``seq_shard_activations``,
 ``weight_stationary_decode``, ``decode_loop``) are kept for parity and do not
 change what the port computes.
@@ -118,6 +116,6 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small).validate()
 
 
-def not_ported(what: str, item: str = "item 17") -> NotImplementedError:
+def not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP Queue 1, {item})")

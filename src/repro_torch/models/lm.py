@@ -5,8 +5,9 @@ Parameters are a plain tensor tree: ``embed`` (padded vocab, d_model),
 them on axis 0 and scans), ``final_norm`` and, untied, ``head``. The
 reference's scan over superlayers is a Python loop here; its two decode
 loops (``decode_loop`` "carry" and "scan") are the same in-place loop, with
-the caches updated where they lie. ``loss_fn`` waits for training (ROADMAP
-item 17).
+the caches updated where they lie. With a ``"shared_attn"`` block in the
+pattern, ``shared`` holds that block's one parameter set. ``loss_fn`` waits
+for training (ROADMAP item 17b).
 """
 from __future__ import annotations
 
@@ -32,6 +33,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                    for _ in range(cfg.superlayer_repeat)],
         "final_norm": torch.ones((cfg.d_model,), device=device),
     }
+    if "shared_attn" in cfg.block_pattern:
+        params["shared"] = blocks.block_init("shared_attn", cfg, generator,
+                                             device)
     if not cfg.tie_embeddings:
         params["head"] = init_dense((cfg.d_model, cfg.padded_vocab),
                                     cfg.param_dtype, generator, device)
@@ -133,9 +137,13 @@ def decode_step(params, cfg: ModelConfig, caches: List, pos: int,
 
 
 def _cache_max_len(cfg: ModelConfig, caches: List) -> int:
-    """The cache length (the RoPE table's length in decode): every block of
-    the dense LM holds a (B, KH, S, D) cache."""
-    return caches[0]["b0"]["k"].shape[2]
+    """The RoPE table's length in decode: the length of the first attention
+    block's (B, KH, S, D) cache, else 2 (a pattern without attention, such
+    as xlstm's, has no RoPE)."""
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind in blocks.ATTENTION_KINDS:
+            return caches[0][f"b{i}"]["k"].shape[2]
+    return 2
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

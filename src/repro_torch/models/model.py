@@ -1,60 +1,164 @@
-"""ModelApi: the step builders' one interface over a model, dense LM only.
+"""ModelApi: the step builders' one interface over every architecture family.
 
   init(generator)                      -- parameters from an explicit generator
   prefill(params, batch, max_len)      -- prompt -> (logits, caches, pos)
   decode(params, caches, pos, batch)   -- one token -> (logits, caches)
-  param_count()
+  param_count(), active_param_count()
+  input_specs(shape), cache_shapes(shape), supports(shape)
 
-Enc-dec models and the ``embed`` frontend raise ``NotImplementedError``
-(ROADMAP Queue 1, item 17), as do ``loss`` (training, item 17) and the
-partition specs (the mesh, item 18).
+Decoder-only families go through ``lm``, the encoder-decoder through
+``encdec``; the ``embed`` frontend (pixtral, the enc-dec encoder) takes
+precomputed embeddings in ``batch["embeds"]``. ``loss`` (training, ROADMAP
+item 17b) and the partition specs (the mesh, item 18) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models.kvcache import TensorSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str          # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def _leaves(tree, path=()):
+    """(path of keys, tensor) of every leaf of a parameter tree."""
+    if isinstance(tree, dict):
+        for key, node in tree.items():
+            yield from _leaves(node, path + (key,))
+    elif isinstance(tree, list):
+        for i, node in enumerate(tree):
+            yield from _leaves(node, path + (i,))
+    else:
+        yield path, tree
 
 
 class ModelApi:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
-        if cfg.is_encdec:
-            raise not_ported("the encoder-decoder ModelApi")
-        if cfg.frontend != "token":
-            raise not_ported(f"the {cfg.frontend!r} frontend")
+
+    # -- parameters --------------------------------------------------------
 
     def init(self, generator: torch.Generator):
         """Parameters on ``generator``'s device, drawn from it."""
+        if self.cfg.is_encdec:
+            return encdec.init_params(self.cfg, generator)
         return lm.init_params(self.cfg, generator)
 
-    def param_count(self) -> int:
-        tree = lm.init_params(self.cfg, None, device="meta")
-        leaves = [tree["embed"], tree["final_norm"], tree.get("head")]
-        stack = list(tree["layers"])
-        while stack:
-            node = stack.pop()
-            if isinstance(node, dict):
-                stack.extend(node.values())
-            else:
-                leaves.append(node)
-        return sum(math.prod(t.shape) for t in leaves if t is not None)
+    def abstract_params(self):
+        """The parameter tree on the meta device: shapes and dtypes only."""
+        if self.cfg.is_encdec:
+            return encdec.init_params(self.cfg, None, device="meta")
+        return lm.init_params(self.cfg, None, device="meta")
 
-    def loss(self, params, batch):
-        raise not_ported("training (ModelApi.loss)")
+    def param_count(self) -> int:
+        return sum(math.prod(t.shape)
+                   for _, t in _leaves(self.abstract_params()))
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: each MoE expert weight counts
+        top_k / n_experts of itself (the reference's 6*N*D accounting)."""
+        cfg = self.cfg
+        if not (cfg.n_experts and cfg.moe_top_k):
+            return self.param_count()
+        total = 0
+        for path, leaf in _leaves(self.abstract_params()):
+            n = math.prod(leaf.shape)
+            if "moe" in path and path[-1] in ("gate", "up", "down"):
+                n = n * cfg.moe_top_k // cfg.n_experts
+            total += n
+        return total
 
     def param_pspecs(self):
         raise not_ported("partition specs", "item 18")
 
+    # -- steps --------------------------------------------------------------
+
+    def loss(self, params, batch):
+        raise not_ported("training (ModelApi.loss)", "item 17b")
+
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        return lm.prefill(params, self.cfg, tokens=batch.get("tokens"),
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return encdec.prefill(params, cfg, batch["embeds"],
+                                  batch["tokens"],
+                                  max_len or batch["tokens"].shape[1])
+        return lm.prefill(params, cfg, tokens=batch.get("tokens"),
                           embeds=batch.get("embeds"), max_len=max_len)
 
     def decode(self, params, caches, pos: int, batch):
-        return lm.decode_step(params, self.cfg, caches, pos,
+        cfg = self.cfg
+        if cfg.is_encdec:
+            return encdec.decode_step(params, cfg, caches, pos,
+                                      batch["token"])
+        return lm.decode_step(params, cfg, caches, pos,
                               token=batch.get("token"),
                               embed=batch.get("embed"))
+
+    # -- abstract inputs ----------------------------------------------------
+
+    def input_specs(self, shape_name: str) -> Dict[str, Any]:
+        """``TensorSpec`` stand-ins for every step input of this cell."""
+        cfg = self.cfg
+        sh = SHAPES[shape_name]
+        b, s = sh.global_batch, sh.seq_len
+        i32, cd = torch.int32, cfg.compute_dtype
+        embeds = TensorSpec((b, s, cfg.d_model), cd)
+        token = {"token": TensorSpec((b,), i32)}
+        if cfg.is_encdec:
+            s_dec = min(s // 4, cfg.max_target_len * 32)  # target = frames/4
+            if sh.kind == "train":
+                return {"embeds": embeds,
+                        "tokens": TensorSpec((b, s_dec), i32),
+                        "labels": TensorSpec((b, s_dec), i32)}
+            if sh.kind == "prefill":
+                return {"embeds": embeds,
+                        "tokens": TensorSpec((b, min(s_dec, 1024)), i32)}
+            return token
+        if cfg.frontend == "embed":
+            if sh.kind == "train":
+                return {"embeds": embeds, "labels": TensorSpec((b, s), i32)}
+            if sh.kind == "prefill":
+                return {"embeds": embeds}
+            return token
+        if sh.kind == "train":
+            return {"tokens": TensorSpec((b, s), i32),
+                    "labels": TensorSpec((b, s), i32)}
+        if sh.kind == "prefill":
+            return {"tokens": TensorSpec((b, s), i32)}
+        return token
+
+    def cache_shapes(self, shape_name: str):
+        cfg = self.cfg
+        sh = SHAPES[shape_name]
+        if cfg.is_encdec:
+            # decoder self-cache capped at max_target_len; encoder memory = seq
+            return encdec.cache_shapes(cfg, sh.global_batch,
+                                       cfg.max_target_len, sh.seq_len)
+        return lm.cache_shapes(cfg, sh.global_batch, sh.seq_len)
+
+    def supports(self, shape_name: str) -> bool:
+        sh = SHAPES[shape_name]
+        return sh.name != "long_500k" or self.cfg.sub_quadratic

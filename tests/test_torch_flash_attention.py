@@ -82,11 +82,54 @@ def test_ragged_s_padding(rng, s):
 
 
 def test_noncausal_off_tile_refused_like_the_reference(rng):
+    """A non-causal S off the tile: the reference's Pallas wrapper refuses
+    it; its default path (the einsum plain version) takes it, and so does
+    the port's wrapper, whose kernel masks the ragged end itself (the
+    refusal was lifted when the encoder-decoder came to launch the kernel at
+    any frame count and at Sk != Sq). The port equals the reference's
+    oracle."""
     jx, tx = _inputs(rng, 1, 2, 1, 300, 32, "float32")
     with pytest.raises(ValueError, match="tile-aligned"):
         j_ops.flash_attention(*jx, causal=False)
-    with pytest.raises(ValueError, match="tile-aligned"):
-        t_ops.flash_attention(*tx, causal=False)
+    np.testing.assert_allclose(
+        _f32(t_ops.flash_attention(*tx, causal=False)),
+        _f32(j_ref.flash_attention(*jx, causal=False)), atol=3e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kh,sq,sk,d", [
+    (2, 4, 4, 4, 96, 64), (1, 6, 2, 7, 300, 32), (2, 4, 2, 40, 3, 16),
+    (1, 2, 2, 16, 16, 80)])
+def test_cross_attention_key_length(rng, b, h, kh, sq, sk, d, dtype):
+    """Non-causal attention with k/v of their own length Sk (the
+    encoder-decoder's cross-attention: a few decoder positions over many
+    frames, and the reverse): the port's plain version and wrapper against
+    the reference's oracle, which takes Sk from k."""
+    arrays = [rng.normal(size=shape).astype(np.float32) for shape in
+              ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.tensor(a).to(getattr(torch, dtype)) for a in arrays]
+    want = _f32(j_ref.flash_attention(*jx, causal=False))
+    for fn in (t_ref.flash_attention, t_ops.flash_attention):
+        got = fn(*tx, causal=False)
+        assert got.shape == (b, h, sq, d) and got.dtype == tx[0].dtype
+        np.testing.assert_allclose(_f32(got), want, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_80(rng, causal, dtype):
+    """zamba2's head dim 80: the port's wrapper on the CPU against the
+    reference's TPU kernel in interpret mode (which takes any D), and the
+    plain version against the reference's oracle."""
+    jx, tx = _inputs(rng, 1, 4, 2, 128, 80, dtype)
+    np.testing.assert_allclose(
+        _f32(t_ops.flash_attention(*tx, causal=causal)),
+        _f32(j_ops.flash_attention(*jx, causal=causal, tq=128, tk=128)),
+        atol=TOL[dtype])
+    np.testing.assert_allclose(
+        _f32(t_ref.flash_attention(*tx, causal=causal)),
+        _f32(j_ref.flash_attention(*jx, causal=causal)), atol=TOL[dtype])
 
 
 def test_first_row_sees_one_key_and_no_row_is_nan(rng):
@@ -150,6 +193,17 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take(case):
         assert q.data_ptr() % 16 == 2
     with pytest.raises(ValueError, match=match):
         t_ops.check_inputs(q, k, v)
+
+
+def test_kernel_checks_key_length():
+    """Sk != Sq passes the checks when not causal, and is refused when
+    causal (the causal kernel takes Sk = Sq, as the reference's)."""
+    q = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 16, 1024, 64), dtype=torch.bfloat16)
+    assert t_ops.check_inputs(q, k, k.clone(), causal=False) == \
+        (2, 16, 16, 4, 64)
+    with pytest.raises(ValueError, match="causal attention needs k"):
+        t_ops.check_inputs(q, k, k.clone(), causal=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -239,3 +239,25 @@ def test_check_inputs_refuses_a_misaligned_view(which):
     args = {"q": q, "k": k, "v": v, which: shifted}
     with pytest.raises(ValueError, match="16-byte"):
         t_ops.check_inputs(args["q"], args["k"], args["v"], kv_len)
+
+
+@pytest.mark.parametrize("b,h,kh,s", [(2, 32, 32, 96), (3, 6, 2, 200)])
+def test_head_dim_80(rng, b, h, kh, s):
+    """zamba2's head dim 80 (its decode: H = KH = 32): the normalised
+    output and the partials of the port's plain version and wrapper against
+    the reference's oracle; the checks take the shape."""
+    jx, tx = _inputs(rng, b, h, kh, s, 80)
+    want = j_ref.decode_attention(*jx)
+    _close(t_ref.decode_attention(*tx), want)
+    _close(t_ops.decode_attention(*tx), want)
+    for got, ref in zip(t_ops.decode_attention_partial(*tx),
+                        j_ref.decode_attention_partial(*jx)):
+        _close(got, ref, atol=2e-5, rtol=1e-5)
+    assert t_ops.check_inputs(*tx) == (b, h, kh, s, 80)
+
+
+def test_cross_step_over_the_encoder_cache(rng):
+    """The encoder-decoder's cross step: one query a head over a cache of
+    encoder frames, every key live (kv_len = the frame count), G = 1."""
+    jx, tx = _inputs(rng, 2, 16, 16, 1024 // 8, 64, kv_len=[128, 128])
+    _close(t_ops.decode_attention(*tx), j_ref.decode_attention(*jx))

@@ -314,10 +314,91 @@ def test_flash_decode_kernel_matches_plain(rng, cuda_device, dtype):
     assert fd_ops.SHAPE is not None
 
 
+def _attention_between_sentinels(q, k, v, causal, dtype, device):
+    """``flash_attention`` written into a view whose 64 rows on each side
+    hold a sentinel: asserts they survive and returns the output."""
+    d = q.shape[-1]
+    pad, n = 64 * d, q.numel()
+    buf = torch.full((n + 2 * pad,), SENTINEL, dtype=dtype, device=device)
+    out = buf[pad:pad + n].view(q.shape)
+    fa_ops._launch(q, k, v, causal, d ** -0.5, out=out)
+    torch.cuda.synchronize()
+    assert bool((buf[:pad] == SENTINEL).all()
+                and (buf[pad + n:] == SENTINEL).all()), tuple(q.shape)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_80(rng, cuda_device, dtype):
+    """Head dim 80 (zamba2): in bf16 the D = 128 plan over 80-wide tensor
+    maps, so the loads' columns 80-127 are TMA's zeros and the store clips
+    them (a column stored past 80 would overwrite the next row, or the
+    sentinel after the last); causal and full, G = 1 and 2, S on and off
+    the tile, against the plain version."""
+    for b, h, kh, s, causal in ((2, 32, 32, 512, True), (1, 4, 2, 300, True),
+                                (2, 4, 2, 97, False), (1, 2, 2, 10, True),
+                                (1, 2, 1, 64, False)):
+        q = _normal(rng, (b, h, s, 80), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, s, 80), dtype, cuda_device)
+                for _ in range(2))
+        got = _attention_between_sentinels(q, k, v, causal, dtype,
+                                           cuda_device)
+        want = fa_ref.flash_attention(q, k, v, causal=causal)
+        assert _within(got, want, dtype), ((b, h, kh, s, causal), float(
+            (got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_key_length(rng, cuda_device, dtype):
+    """Non-causal attention with k/v of their own length Sk: the
+    encoder-decoder's cross-attention (4 decoder positions over 1,024
+    frames), ragged lengths either way, Sk <= 16 (the short key tile),
+    head dims 16 to 128, against the plain version, between sentinels."""
+    for b, h, kh, sq, sk, d in ((2, 16, 16, 4, 1024, 64),
+                                (1, 6, 2, 7, 300, 32), (2, 4, 2, 130, 3, 16),
+                                (2, 8, 8, 5, 77, 80), (1, 12, 2, 70, 600, 128),
+                                (3, 2, 1, 65, 16, 64)):
+        q = _normal(rng, (b, h, sq, d), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, sk, d), dtype, cuda_device)
+                for _ in range(2))
+        got = _attention_between_sentinels(q, k, v, False, dtype,
+                                           cuda_device)
+        want = fa_ref.flash_attention(q, k, v, causal=False)
+        assert _within(got, want, dtype), ((b, h, kh, sq, sk, d), float(
+            (got.float() - want.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_head_dim_80(rng, cuda_device, dtype):
+    """Head dim 80 on both entries at zamba2's decode (H = KH = 32, 8 rows,
+    a 528-key cache, ragged kv_len) and with G = 6, between sentinels."""
+    for b, h, kh, s in ((8, 32, 32, 528), (3, 12, 2, 300)):
+        q, k, v, kv_len = _decode_case(rng, cuda_device, dtype, b, h, kh, s,
+                                       80, [s, 0, 1, s // 2, 33, s - 1])
+        for normalized in (True, False):
+            out_dtype = dtype if normalized else torch.float32
+            pad, n = 64 * 80, q.numel()
+            buf = torch.full((n + 2 * pad,), SENTINEL, dtype=out_dtype,
+                             device=cuda_device)
+            out = buf[pad:pad + n].view(q.shape)
+            got = fd_ops._launch(q, k, v, kv_len, 80 ** -0.5, normalized,
+                                 out=out)
+            torch.cuda.synchronize()
+            assert bool((buf[:pad] == SENTINEL).all()
+                        and (buf[pad + n:] == SENTINEL).all())
+            want = (fd_ref.decode_attention(q, k, v, kv_len) if normalized
+                    else fd_ref.decode_attention_partial(q, k, v, kv_len))
+            _decode_close(got, want, normalized, dtype)
+
+
 def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 2, 8, 48), device=cuda_device)       # D = 48
-    with pytest.raises(ValueError, match="D in"):
+    with pytest.raises(ValueError, match=r"D in \(16, 32, 64, 80, 128\)"):
         fa_ops.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    k = torch.zeros((1, 2, 9, 32), device=cuda_device)       # Sk != Sq
+    with pytest.raises(ValueError, match="causal attention needs k"):
+        fa_ops.flash_attention(q, k, k, causal=True)
     q = torch.zeros((1, 2, 8, 32), dtype=torch.float16, device=cuda_device)
     with pytest.raises(ValueError, match="bfloat16"):
         fa_ops.flash_attention(q, q, q)
@@ -326,6 +407,11 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     q = flat[1:].view(1, 2, 8, 32)                           # 2-byte offset
     with pytest.raises(ValueError, match="16-byte"):
         fa_ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    q = torch.zeros((1, 2, 48), device=cuda_device)
+    k = torch.zeros((1, 1, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match=r"D in \(16, 32, 64, 80, 128\)"):
+        fd_ops.decode_attention(q, k, k, torch.zeros((1,), dtype=torch.int32,
+                                                     device=cuda_device))
     q = torch.zeros((1, 2, 32), device=cuda_device)
     k = torch.zeros((1, 1, 8, 32), device=cuda_device)
     with pytest.raises(ValueError, match="kv_len"):
