@@ -104,6 +104,29 @@ exits non-zero, printing no result, without them. Phases:
    within phase 6's limits, since a row whose expert choice flips differs
    at O(1)); and, without experts, the cached decode matches the
    teacher-forced forward within phase 6's limits in float32 compute.
+11. Train: (a) ``launch/train.py::train`` on tinyllama-1.1b at its
+   published width and depth (22 layers, bf16 weights from the train
+   loop's seeded generator, AdamW, remat): ``TokenStream`` batches of 16 x
+   2,048 tokens, accum 8, 8 steps, a checkpoint every 4 (11 GB each, under
+   the checkout's ``build/``); then in a fresh directory a run that a
+   ``FailureInjector`` stops at step 6 and a second ``train()`` that
+   resumes from step 4. Printed: step ms (a loop iteration, the batch's
+   build and copy included), tokens/s, MFU, losses,
+   grad_norm, peak memory, launches a step (exactly 8 x 22 x 2
+   ``flash_attention``: the forward and its remat recompute; the backward
+   is the plain version's gradient). Checked: finite losses that fall,
+   every parameter leaf with a nonzero gradient on step 1 (wq, wk, wv
+   only through the kernel's autograd wrapper), the resumed losses equal
+   to the uninterrupted run's bit for bit, no ``.tmp`` left.
+   (b) The same model cut to 2 layers, one microbatch: the loss and every
+   leaf's gradient with the kernel against the plain attention bound in,
+   within phase 6's relative L2 or twice the rounding floor. (c) Train
+   steps of pixtral-12b cut to 4 of 40 layers (Adafactor, the ``embed``
+   frontend, batch 4 x 1,024) and seamless-m4t-medium whole (AdamW, the
+   enc-dec loss, 1,024 frames and 256 decoder tokens, batch 8): a finite
+   loss, exactly the leaves without a gradient unmoved (pixtral's token
+   table, which its frontend never reads), launches exact, peak memory;
+   two steps each, the second timed.
 
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
@@ -119,10 +142,11 @@ and ``predicate_filter`` over the whole 2M-row ring, and
 ``flash_decode``'s partial entry at one slice of phase 9's
 sequence-parallel decode, and phase 10's new shapes: ``flash_attention``
 at zamba2's prefill (head dim 80), seamless's encoder and its
-cross-attention (Sk != Sq), ``flash_decode`` at zamba2's decode and at
+cross-attention (Sk != Sq), ``flash_attention`` at phase 11's training
+microbatch, ``flash_decode`` at zamba2's decode and at
 seamless's cross step (``flash_decode``'s
-cluster size is printed and checked at each shape), ``join_compact`` and
-``flash_decode`` beside the floor under their time (the empty kernel of
+cluster size is printed and checked at each shape), ``join_compact``,
+``flash_attention`` and ``flash_decode`` beside the floor under their time (the empty kernel of
 ``csrc/launch_floor.cu`` on the same grid, timed the same way), and
 ``join_compact``'s path (its quad path at both shapes, asserted from the
 wrapper's counts); then ``torch.profiler``
@@ -982,7 +1006,8 @@ def case_flash_attention(dev, rng, shape, causal: bool = True,
     unless given; non-causal only). Bound: the larger of the live products
     (4 D operations per (query, key) pair under the causal mask) over the
     bf16 tensor-core rate and q, k, v, out once over the memory rate.
-    Library: SDPA with GQA (and the causal mask)."""
+    Library: SDPA with GQA (and the causal mask). Floor: the empty kernel
+    on the launch's grid."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     b, h, kh, s_len, d = shape
@@ -997,6 +1022,7 @@ def case_flash_attention(dev, rng, shape, causal: bool = True,
     pairs = s_len * (s_len + 1) // 2 if causal else s_len * sk
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return dict(wrapper=lambda: fa_ops.flash_attention(q, k, v, causal=causal),
+                floor=flash_attention_floor(shape, sk, causal),
                 plain=lambda: fa_ref.flash_attention(q, k, v, causal=causal),
                 library=lambda: sdpa(q, k, v, is_causal=causal,
                                      enable_gqa=True),
@@ -1004,6 +1030,20 @@ def case_flash_attention(dev, rng, shape, causal: bool = True,
                 bound_ops=4 * b * h * d * pairs,
                 ops_per_s=BF16_TENSOR_OPS_PER_S,
                 tolerance=FLASH_TOL[torch.bfloat16])
+
+
+def flash_attention_floor(shape, sk: int, causal: bool):
+    """The empty kernel on the launch the bf16 ``flash_attention`` makes at
+    (B, H, KH, S, D) with ``sk`` keys: its threads, shared memory and grid,
+    as the launch decides them (``flash_attention_block``)."""
+    from repro_torch.kernels import _build
+    b, h, kh, s_len, d = shape
+    lib = _build.library()
+    threads, smem, grid = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib.flash_attention_block(
+        b, h, kh, s_len, sk, d, int(causal), ctypes.byref(threads),
+        ctypes.byref(smem), ctypes.byref(grid)), "flash_attention_block")
+    return floor_call(grid.value, threads.value, smem.value)
 
 
 def case_flash_decode(dev, rng, shape, live: int = None) -> dict:
@@ -2691,7 +2731,7 @@ def family_phase(dev, arch: str, shape: dict) -> dict:
     not hide a wrong cache position, state or angle (an MoE layer's
     capacity depends on the tokens in the call, so a decode step does not
     route as the forward does)."""
-    from repro_torch import configs
+    from repro_torch import configs, tree
     from repro_torch.launch.serve import serve, serve_inputs
     from repro_torch.models.model import ModelApi
 
@@ -2704,7 +2744,8 @@ def family_phase(dev, arch: str, shape: dict) -> dict:
     params = api.init(torch.Generator(dev).manual_seed(SEED))
     sync(dev)
     init_s = time.perf_counter() - t
-    weight_bytes = sum(t.numel() * t.element_size() for t in _tensors(params))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree.leaves(params))
     serve(cfg, batch, min(prompt, 64), 2, device=dev, params=params)
     if cuda:
         torch.cuda.empty_cache()
@@ -2778,17 +2819,6 @@ def family_phase(dev, arch: str, shape: dict) -> dict:
                 sample=toks[0, :8].tolist(), **shape)
 
 
-def _tensors(tree):
-    if isinstance(tree, dict):
-        for node in tree.values():
-            yield from _tensors(node)
-    elif isinstance(tree, list):
-        for node in tree:
-            yield from _tensors(node)
-    else:
-        yield tree
-
-
 def print_family(f: dict, card: str) -> None:
     cut = ("" if f["layers"] == f["published_layers"] else
            f" (depth cut from {f['published_layers']})")
@@ -2857,6 +2887,383 @@ def family_timing_cases(fam: dict) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+
+class _GradProbe:
+    """The optimizer as the train step sees it, which notes, on the first
+    update it passes on, the names of the parameter leaves whose gradient
+    is zero everywhere."""
+
+    def __init__(self, optimizer, record):
+        self.optimizer, self.record = optimizer, record
+
+    def init(self, params):
+        return self.optimizer.init(params)
+
+    def update(self, grads, state, params):
+        if self.record.zero_grads is None:
+            from repro_torch import tree
+            nonzero = torch.stack([g.ne(0).any() for g in
+                                   tree.leaves(grads)]).tolist()
+            self.record.zero_grads = [
+                ".".join(map(str, path)) for (path, _), nz in
+                zip(tree.leaves_with_path(grads), nonzero) if not nz]
+        return self.optimizer.update(grads, state, params)
+
+
+class recording_train:
+    """While open, ``launch/train.train`` builds its train step through
+    ``build`` and its batches through ``batches``: each loop iteration's
+    seconds from the batch's build to the step's end (host clock, the
+    device synchronised at both ends; the batch's build and copy to the
+    device alone in ``batch_s``), loss, grad_norm and kernel launches are
+    kept in ``steps``, and the first step's leaves without a gradient in
+    ``zero_grads``. A step called without a batch from ``batches`` is timed
+    alone."""
+
+    def __init__(self, dev):
+        from repro_torch.launch import steps
+        from repro_torch.launch import train as train_mod
+        self.dev, self.saved = dev, steps.build_train_step
+        self.saved_batches = train_mod.make_batch_fn
+        self.steps, self.zero_grads, self.batch_t = [], None, None
+
+    def __enter__(self):
+        from repro_torch.launch import train as train_mod
+        train_mod.build_train_step = self.build
+        train_mod.make_batch_fn = self.batches
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train as train_mod
+        train_mod.build_train_step = self.saved
+        train_mod.make_batch_fn = self.saved_batches
+
+    def batches(self, cfg, batch, seq):
+        fn = self.saved_batches(cfg, batch, seq)
+
+        def timed(step):
+            sync(self.dev)
+            self.batch_t = time.perf_counter()
+            return fn(step)
+        return timed
+
+    def build(self, api, optimizer=None, accum=None):
+        from repro_torch.launch.steps import default_optimizer
+        step = self.saved(api, _GradProbe(
+            optimizer or default_optimizer(api.cfg), self), accum)
+
+        def timed(params, opt_state, batch):
+            sync(self.dev)
+            before, t = launch_counts(), time.perf_counter()
+            start = t if self.batch_t is None else self.batch_t
+            self.batch_t = None
+            params, opt_state, metrics = step(params, opt_state, batch)
+            sync(self.dev)
+            self.steps.append(dict(s=time.perf_counter() - start,
+                                   batch_s=t - start,
+                                   loss=float(metrics["loss"]),
+                                   grad_norm=float(metrics["grad_norm"]),
+                                   launches=since(before)))
+            return params, opt_state, metrics
+        return timed
+
+
+def train_launches(cfg, accum: int) -> dict:
+    """Launches of one train step: ``flash_attention`` twice an attention
+    call and microbatch under ``remat`` (the forward, then its recompute in
+    the backward; the backward itself is the plain version's), once
+    without; nothing else."""
+    want = dict.fromkeys(launch_counts(), 0)
+    want["flash_attention"] = (accum * attention_calls(cfg)[0]
+                               * (2 if cfg.remat else 1))
+    return want
+
+
+def tmp_dirs(root: str) -> list:
+    return [d for d in os.listdir(root) if d.endswith(".tmp")]
+
+
+def train_phase(dev, cfg, shape: dict) -> dict:
+    """(a) ``launch/train.train`` at ``cfg``'s width and depth on seeded
+    weights (its own ``torch.Generator``): ``shape["steps"]`` steps of
+    ``TokenStream`` batches, a checkpoint every ``ckpt_every``; then, in a
+    fresh directory, a run that a ``FailureInjector`` stops at step
+    ``fail_at`` and a second ``train()`` that resumes from the last
+    checkpoint and runs to the end. Checks: finite losses that fall (the
+    mean of the last 3 below the first 3's), every parameter leaf with a
+    nonzero gradient on step 1, each step's launches exact, the resumed
+    losses equal to the uninterrupted run's bit for bit, no
+    ``.tmp`` directory left. The checkpoints go to a directory under the
+    checkout's ``build/`` and are removed after."""
+    import shutil
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import ModelApi
+    from repro_torch.runtime.failure import FailureInjector
+
+    batch, seq, steps = shape["batch"], shape["seq"], shape["steps"]
+    every, fail_at = shape["ckpt_every"], shape["fail_at"]
+    accum = min(cfg.grad_accum, batch)
+    cuda = dev.type == "cuda"
+    root = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    run_a, run_b = os.path.join(root, "a"), os.path.join(root, "b")
+    kw = dict(steps=steps, batch=batch, seq=seq, ckpt_every=every,
+              log_every=every, device=dev)
+    try:
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t = time.perf_counter()
+        with recording_train(dev) as rec:
+            params, opt, losses = train(cfg, ckpt_dir=run_a, **kw)
+        wall_a = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+        launches, shapes = launch_counts(), launch_shapes()
+        from repro_torch import tree
+        n_leaves = len(tree.leaves(params))
+        del params, opt
+        ckpts_a = sorted(os.listdir(run_a))
+        assert not tmp_dirs(run_a), os.listdir(run_a)
+        shutil.rmtree(run_a)
+        t = time.perf_counter()
+        with recording_train(dev) as rec_b:
+            try:
+                train(cfg, ckpt_dir=run_b,
+                      injector=FailureInjector(fail_at=(fail_at,)), **kw)
+            except RuntimeError as e:
+                failure = str(e)
+            else:
+                raise AssertionError("the injected failure did not stop the "
+                                     "run")
+            after_failure = sorted(os.listdir(run_b))
+            _, _, resumed = train(cfg, ckpt_dir=run_b, **kw)
+        wall_b = time.perf_counter() - t
+        assert not tmp_dirs(run_b), os.listdir(run_b)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert rec.zero_grads == [], ("leaves without a gradient on step 1 "
+                                  "(wq, wk, wv need one through the kernel)",
+                                  rec.zero_grads)
+    if cuda:
+        want = train_launches(cfg, accum)
+        for s in rec.steps + rec_b.steps:
+            assert s["launches"] == want, (s["launches"], want)
+    last = (fail_at // every) * every
+    assert after_failure[-1] == f"step_{last:08d}" and not any(
+        d.endswith(".tmp") for d in after_failure), after_failure
+    assert len(resumed) == steps - last and len(rec_b.steps) == \
+        fail_at + steps - last, (resumed, len(rec_b.steps))
+    # every leaf is restored bit for bit, so the resumed steps repeat the
+    # uninterrupted ones exactly
+    assert resumed == losses[last:], (resumed, losses[last:])
+    tokens = batch * seq
+    timed = [s["s"] for s in rec.steps[1:]]
+    step_s = float(np.mean(timed))
+    batch_s = float(np.mean([s["batch_s"] for s in rec.steps[1:]]))
+    n_params = ModelApi(cfg).active_param_count()
+    return dict(arch=cfg.name, layers=cfg.superlayer_repeat,
+                d_model=cfg.d_model, params=n_params, accum=accum,
+                losses=losses, resumed=resumed,
+                grad_norms=[s["grad_norm"] for s in rec.steps],
+                step_ms=[1e3 * s["s"] for s in rec.steps],
+                step_ms_mean=1e3 * step_s, batch_ms_mean=1e3 * batch_s,
+                tokens_per_s=tokens / step_s,
+                mfu=6 * n_params * tokens / step_s / BF16_TENSOR_OPS_PER_S,
+                hfu=8 * n_params * tokens / step_s / BF16_TENSOR_OPS_PER_S,
+                peak_gib=peak, wall_a_s=wall_a, wall_b_s=wall_b,
+                launches=launches, shapes=shapes,
+                launches_per_step=rec.steps[0]["launches"],
+                steps_run=len(rec.steps) + len(rec_b.steps),
+                checkpoints=ckpts_a, after_failure=after_failure,
+                failure=failure, leaves=n_leaves, **shape)
+
+
+def train_grad_phase(dev, cfg, shape: dict) -> dict:
+    """(b) The loss and every leaf's gradient of one microbatch (seeded
+    weights, ``TokenStream`` step 0) with the kernel under autograd
+    against the same with the plain attention bound in
+    (``plain_attention``). Limit a leaf: relative L2 ``DECODE_REL_L2``, or
+    twice the model's rounding floor where that is larger (the distance
+    between the plain run and the plain attention in float32 rounded once,
+    measured leaf by leaf); the loss the same way."""
+    from repro_torch import tree
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.model import ModelApi
+    api = ModelApi(cfg)
+    params = api.init(torch.Generator(dev).manual_seed(SEED))
+    host = make_batch_fn(cfg, shape["micro"], shape["seq"])(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    before = launch_counts()
+    loss_k, g_k = value_and_grad(api, params, batch)
+    launched = since(before)
+    with plain_attention():
+        loss_p, g_p = value_and_grad(api, params, batch)
+    with plain_attention(float32=True):
+        loss_f, g_f = value_and_grad(api, params, batch)
+    names = [".".join(map(str, p)) for p, _ in tree.leaves_with_path(params)]
+    rows = []
+    for name, k, p, f in zip(names, g_k, g_p, g_f):
+        err, floor = logit_errors(k, p)[0], logit_errors(f, p)[0]
+        rows.append((name, err, floor, max(DECODE_REL_L2, 2 * floor)))
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    loss_floor = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    del g_k, g_p, g_f, params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        want = dict.fromkeys(launched, 0)
+        want["flash_attention"] = attention_calls(cfg)[0] * (
+            2 if cfg.remat else 1)
+        assert launched == want, (launched, want)
+    bad = [r for r in rows if not r[1] <= r[3]]
+    assert not bad, bad
+    assert loss_err <= max(DECODE_REL_L2, 2 * loss_floor), (loss_err,
+                                                            loss_floor)
+    assert all(r[1] > 0 or r[2] == 0 for r in rows if "attn" in r[0]), rows
+    worst = max(rows, key=lambda r: r[1])
+    return dict(layers=cfg.superlayer_repeat, leaves=len(rows),
+                loss=float(loss_k), loss_plain=float(loss_p),
+                loss_err=loss_err, loss_floor=loss_floor,
+                worst=list(worst), worst_floor=max(r[2] for r in rows),
+                attn={r[0]: [r[1], r[2]] for r in rows
+                      if r[0].endswith(("wq", "wk", "wv")) and ".0." in r[0]},
+                launches=launched, **shape)
+
+
+def train_step_phase(dev, arch: str, shape: dict) -> dict:
+    """(c) Two train steps of another family at its published width (depth
+    cut by ``shape["depth"]``): its config's optimizer and accumulation,
+    ``make_batch_fn``'s batches; the first step is cold (allocator growth,
+    library handles), the second is the one timed (the step alone: the
+    batches are built and copied beforehand). Checks: finite losses;
+    after step 1 exactly the leaves with no gradient keep their values
+    (pixtral's token table, which the ``embed`` frontend never reads, is
+    the only one allowed none); the launches of each step exact."""
+    from repro_torch import configs, tree
+    from repro_torch.launch.steps import default_optimizer
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.model import ModelApi
+    full = configs.get_config(arch)
+    cfg = cut_depth(full, shape["depth"])
+    cuda = dev.type == "cuda"
+    api = ModelApi(cfg)
+    params = api.init(torch.Generator(dev).manual_seed(SEED))
+    opt = default_optimizer(cfg)
+    state = opt.init(params)
+    accum = min(cfg.grad_accum, shape["batch"])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                make_batch_fn(cfg, shape["batch"], shape["seq"])(i).items()}
+               for i in range(2)]
+    before = [p.clone() for p in tree.leaves(params)]
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    rec = recording_train(dev)
+    step_fn = rec.build(api, opt, accum)
+    params, state, _ = step_fn(params, state, batches[0])
+    names = [".".join(map(str, p)) for p, _ in tree.leaves_with_path(params)]
+    still = [n for n, a, b in zip(names, before, tree.leaves(params))
+             if torch.equal(a, b)]
+    del before
+    params, state, _ = step_fn(params, state, batches[1])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else 0.0
+    del params, state, batches
+    if cuda:
+        torch.cuda.empty_cache()
+        for s in rec.steps:
+            assert s["launches"] == train_launches(cfg, accum), s["launches"]
+    step = rec.steps[1]
+    assert all(np.isfinite(s["loss"]) for s in rec.steps), rec.steps
+    assert still == rec.zero_grads, (still, rec.zero_grads)
+    allowed = ["embed"] if cfg.frontend == "embed" and not cfg.is_encdec \
+        else []
+    assert rec.zero_grads == allowed, rec.zero_grads
+    return dict(arch=arch, layers=cfg.superlayer_repeat,
+                published_layers=full.superlayer_repeat,
+                enc_layers=cfg.n_enc_layers, optimizer=type(opt).__name__,
+                accum=accum, params=api.param_count(),
+                losses=[s["loss"] for s in rec.steps],
+                grad_norm=rec.steps[0]["grad_norm"],
+                cold_ms=1e3 * rec.steps[0]["s"], step_ms=1e3 * step["s"],
+                unmoved=still, leaves=len(names), peak_gib=peak,
+                launches=step["launches"], **shape)
+
+
+def training_phase(dev) -> dict:
+    """Phase 11: (a), (b) and (c), printed; returns (a)'s result for the
+    kernel line."""
+    from repro_torch import configs
+    card = card_line()
+    t0 = time.perf_counter()
+    cfg = configs.get_config(TRAIN_ARCH)
+    tr = train_phase(dev, cfg, TRAIN)
+    print(f"[train] {tr['arch']} on {card}: {tr['layers']} layers, d_model "
+          f"{tr['d_model']}, {tr['params']:,} parameters, "
+          f"{str(cfg.param_dtype).split('.')[-1]}, {cfg.optimizer}, remat "
+          f"{cfg.remat}; batch {tr['batch']} x seq {tr['seq']}, accum "
+          f"{tr['accum']}: {tr['steps']} steps, step ms (the batch's "
+          f"build and copy included) "
+          f"{json.dumps([round(x, 1) for x in tr['step_ms']])}; mean of "
+          f"steps 2-{tr['steps']} {tr['step_ms_mean']:.1f} ms (the batch "
+          f"{tr['batch_ms_mean']:.1f} ms of it), "
+          f"{tr['tokens_per_s']:.0f} tokens/s, MFU (6 N D) "
+          f"{100 * tr['mfu']:.1f}%, with the remat recompute (8 N D) "
+          f"{100 * tr['hfu']:.1f}% of 989 TFLOP/s; max_memory_allocated "
+          f"{tr['peak_gib']:.2f} GiB")
+    print(f"[train] loss {tr['losses'][0]:.4f} -> {tr['losses'][-1]:.4f} "
+          f"({json.dumps([round(x, 4) for x in tr['losses']])}); grad_norm "
+          f"{json.dumps([round(x, 4) for x in tr['grad_norms']])}; every "
+          f"parameter leaf with a nonzero gradient on step 1 (wq, wk, wv "
+          f"included); launches a step {json.dumps(tr['launches_per_step'])}"
+          f"; largest shapes {json.dumps(tr['shapes']['flash_attention'])}")
+    print(f"[train] checkpoints every {tr['ckpt_every']}: {tr['checkpoints']}"
+          f" in {tr['wall_a_s']:.1f} s; restart: '{tr['failure']}', left "
+          f"{tr['after_failure']}, resumed losses "
+          f"{json.dumps([round(x, 4) for x in tr['resumed']])}, "
+          f"bit-equal to the uninterrupted run's; {tr['steps_run']} steps "
+          f"in all, the "
+          f"restart in {tr['wall_b_s']:.1f} s; no .tmp left")
+    cut = cut_depth(cfg, TRAIN_GRAD["depth"])
+    gp = train_grad_phase(dev, cut, TRAIN_GRAD)
+    print(f"[train] gradient through the kernel, {cfg.name} cut to "
+          f"{gp['layers']} layers, one microbatch ({gp['micro']} x "
+          f"{gp['seq']}): loss {gp['loss']:.6f} against {gp['loss_plain']:.6f}"
+          f" with the plain attention (relative {gp['loss_err']:.3g}, floor "
+          f"{gp['loss_floor']:.3g}); all {gp['leaves']} leaves within "
+          f"max({DECODE_REL_L2}, 2 x floor) relative L2, worst "
+          f"{json.dumps(gp['worst'])} (name, error, floor, limit); layer 0 "
+          f"wq, wk, wv (error, floor) {json.dumps(gp['attn'])}; launches "
+          f"{json.dumps(gp['launches'])}")
+    others = {}
+    for arch, shape in TRAIN_OTHERS:
+        o = train_step_phase(dev, arch, shape)
+        others[arch] = o
+        cut = ("" if o["layers"] == o["published_layers"] else
+               f" (depth cut from {o['published_layers']})")
+        print(f"[train] {arch} on {card}: {o['layers']} layers{cut}, "
+              f"{o['params']:,} parameters, {o['optimizer']}, batch "
+              f"{o['batch']}, seq {o['seq']}, accum {o['accum']}: step 2 "
+              f"{o['step_ms']:.1f} ms (step 1, cold, {o['cold_ms']:.1f} ms), "
+              f"losses {json.dumps([round(x, 4) for x in o['losses']])}, "
+              f"step 1 grad_norm {o['grad_norm']:.4f}; "
+              f"{o['leaves'] - len(o['unmoved'])} of "
+              f"{o['leaves']} leaves moved by step 1 (unmoved, without a "
+              f"gradient: "
+              f"{o['unmoved']}); launches {json.dumps(o['launches'])}; "
+              f"max_memory_allocated {o['peak_gib']:.2f} GiB")
+    print(f"[train] phase 11 in {time.perf_counter() - t0:.1f} s")
+    return dict(tr, grad=gp, others=others)
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -2916,6 +3323,18 @@ FAMILIES = [
 # a tie between its k-th and (k+1)-th expert, the token takes another
 # expert and its row differs at O(1)
 MOE_ROWS_WITHIN = 0.75
+# phase 11: tinyllama-1.1b at its published width and depth (the reference
+# train CLI's default arch): batch 16 x 2,048 tokens, accum min(8, 16) = 8
+# (microbatch 2), 8 steps, a checkpoint every 4; the restart fails at step 6
+# and resumes from step 4. (b) the same model cut to 2 layers, one
+# microbatch; (c) pixtral-12b cut to 4 of 40 layers (Adafactor, b1 0.9, the
+# embed frontend) and seamless-m4t-medium whole (AdamW, the enc-dec loss,
+# 1,024 frames and 256 decoder tokens), one step each
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN = dict(batch=16, seq=2048, steps=8, ckpt_every=4, fail_at=6)
+TRAIN_GRAD = dict(depth=2, micro=2, seq=2048)
+TRAIN_OTHERS = [("pixtral-12b", dict(depth=4, batch=4, seq=1024)),
+                ("seamless-m4t-medium", dict(depth=None, batch=8, seq=1024))]
 
 
 def main() -> int:
@@ -3107,6 +3526,9 @@ def main() -> int:
         print_family(fam[arch], card)
     print(f"[families] phase 10 in {time.perf_counter() - t:.1f} s")
 
+    torch.cuda.empty_cache()
+    tr = training_phase(dev)
+
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
     timed = [
@@ -3150,6 +3572,10 @@ def main() -> int:
         # phase 10's new shapes: head dim 80 (zamba2) and key lengths of
         # their own (seamless's encoder, cross-attention and cross decode)
         *family_timing_cases(fam),
+        # phase 11: the training microbatch's shape (every launch of the
+        # train run, forward and remat recompute)
+        ("flash_attention", tr, f"phase 11, {TRAIN_ARCH} training "
+         f"microbatch", "B={} H={} KH={} S={} D={}", case_flash_attention),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
@@ -3211,6 +3637,7 @@ def main() -> int:
     # the second rows: join_compact at the compact phase's real grid,
     # flash_attention at the enriched tick's scorer batch, flash_decode at a
     # long cache, predicate_filter at a full scan of the ring
+    *measured, train_row = measured
     n_family = len(FAMILY_CASES)
     *entries, real_grid, scorer, long_cache, full_scan, sp_slice = \
         measured[:-n_family]
@@ -3221,6 +3648,7 @@ def main() -> int:
                (sp_slice, "flash_decode", "sp_decode_slice")]
     seconds += [(e, e["name"], key) for e, key in
                 zip(measured[-n_family:], FAMILY_CASES)]
+    seconds.append((train_row, "flash_attention", "train"))
     for entry, second, key in seconds:
         first = next(e for e in entries if e["name"] == second)
         first[key] = {k: v for k, v in entry.items()
@@ -3236,6 +3664,9 @@ def main() -> int:
         if e["name"] in ("flash_attention", "flash_decode"):
             e["family_launches"] = {a: f["launches"][e["name"]]
                                     for a, f in fam.items()}
+        if e["name"] == "flash_attention":
+            e["train_launches_per_step"] = \
+                tr["launches_per_step"]["flash_attention"]
     assert min(sharded.values()) > 0, sharded
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)

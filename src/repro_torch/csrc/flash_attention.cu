@@ -772,11 +772,20 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* p, int64_t slabs,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the plan of width D over tensors whose rows are d <= D wide
+// The bf16 launch's shape: threads a block, dynamic shared memory, and the
+// persistent grid (the (query, head) tiles, at most the blocks resident on
+// the device at once).
+struct LaunchShape {
+  int threads, smem, grid;
+};
+
+// the plan of width D over tensors whose rows are d <= D wide; with
+// ``shape`` given, its launch shape is written there and nothing launched
 template <int D, int BN>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int batch, int heads, int kv_heads, int s_len, int s_keys,
-                int d, float scale, int causal, cudaStream_t stream) {
+                int d, float scale, int causal, cudaStream_t stream,
+                LaunchShape* shape) {
   using P = Plan<D, BN>;
   static int resident[kMaxDevices];
   int blocks = 0;
@@ -789,6 +798,12 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   const int64_t tiles = (gs + kRows - 1) / kRows;
   if (gs > INT_MAX || slabs * tiles > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t total = slabs * tiles;
+  const int grid = static_cast<int>(total < blocks ? total : blocks);
+  if (shape != nullptr) {
+    *shape = {kThreads, P::SMEM, grid};
+    return 0;
+  }
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap mq, mk, mv, mo;
@@ -797,8 +812,6 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
       !encode<D, BN>(fn, &mv, v, slabs, s_keys, BN, d) ||
       !encode<D, BN>(fn, &mo, out, slabs, gs, kRows, d))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t total = slabs * tiles;
-  const int grid = static_cast<int>(total < blocks ? total : blocks);
   bf16_attention_kernel<D, BN><<<grid, kThreads, P::SMEM, stream>>>(
       mq, mk, mv, mo, static_cast<int>(slabs), static_cast<int>(tiles),
       static_cast<int>(gs), s_len, s_keys, g, scale * kLog2e, causal);
@@ -806,20 +819,41 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 }
 
 // bf16 at D = 80 takes the D = 128 plan (the TMA maps are 80 wide); the key
-// tile is 16 keys where Sk <= 16
+// tile is 16 keys where Sk <= 16. ``shape`` as in launch_bf16 (bf16 only)
 template <int D>
 int launch_d(int dtype, const void* q, const void* k, const void* v,
              void* out, int batch, int heads, int kv_heads, int s_len,
-             int s_keys, float scale, int causal, cudaStream_t stream) {
+             int s_keys, float scale, int causal, cudaStream_t stream,
+             LaunchShape* shape) {
   constexpr int DP = D == 80 ? 128 : D;
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, out, batch, heads, kv_heads, s_len, s_keys,
-                         scale, causal, stream);
+    return shape != nullptr
+               ? static_cast<int>(cudaErrorInvalidValue)
+               : launch_f32<D>(q, k, v, out, batch, heads, kv_heads, s_len,
+                               s_keys, scale, causal, stream);
   if (s_keys <= 16)
     return launch_bf16<DP, 16>(q, k, v, out, batch, heads, kv_heads, s_len,
-                               s_keys, D, scale, causal, stream);
+                               s_keys, D, scale, causal, stream, shape);
   return launch_bf16<DP, 64>(q, k, v, out, batch, heads, kv_heads, s_len,
-                             s_keys, D, scale, causal, stream);
+                             s_keys, D, scale, causal, stream, shape);
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int heads, int kv_heads, int s_len, int s_keys, int head_dim,
+           int dtype, float scale, int causal, cudaStream_t st,
+           LaunchShape* shape) {
+  if (batch <= 0 || heads <= 0 || s_len <= 0) return 0;
+  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1) ||
+      s_keys <= 0 || (causal && s_keys != s_len))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (head_dim) {
+    case 16: return launch_d<16>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st, shape);
+    case 32: return launch_d<32>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st, shape);
+    case 64: return launch_d<64>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st, shape);
+    case 80: return launch_d<80>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st, shape);
+    case 128: return launch_d<128>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st, shape);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -832,17 +866,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int heads, int kv_heads, int s_len,
                                       int s_keys, int head_dim, int dtype,
                                       float scale, int causal, void* stream) {
-  if (batch <= 0 || heads <= 0 || s_len <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1) ||
-      s_keys <= 0 || (causal && s_keys != s_len))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return launch_d<16>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
-    case 32: return launch_d<32>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
-    case 64: return launch_d<64>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
-    case 80: return launch_d<80>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
-    case 128: return launch_d<128>(dtype, q, k, v, out, batch, heads, kv_heads, s_len, s_keys, scale, causal, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(q, k, v, out, batch, heads, kv_heads, s_len, s_keys, head_dim,
+                dtype, scale, causal, static_cast<cudaStream_t>(stream),
+                nullptr);
+}
+
+// The shape flash_attention_launch gives the bf16 kernel at these sizes:
+// threads a block, dynamic shared memory and grid, for timing the empty
+// kernel on the same launch. Returns a cudaError_t.
+extern "C" int flash_attention_block(int batch, int heads, int kv_heads,
+                                     int s_len, int s_keys, int head_dim,
+                                     int causal, int* threads, int* smem,
+                                     int* grid) {
+  LaunchShape shape = {0, 0, 0};
+  const int e = launch(nullptr, nullptr, nullptr, nullptr, batch, heads,
+                       kv_heads, s_len, s_keys, head_dim, 1, 1.0f, causal,
+                       nullptr, &shape);
+  *threads = shape.threads;
+  *smem = shape.smem;
+  *grid = shape.grid;
+  return e;
 }

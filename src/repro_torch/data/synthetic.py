@@ -1,14 +1,17 @@
-"""Synthetic EnrichedTweets streams (paper §5.1/§5.4), numpy-generated.
+"""Synthetic EnrichedTweets streams (paper §5.1/§5.4) and the LM token
+stream, numpy-generated.
 
 Field distributions reproduce the paper's stated selectivities: predicates
 I-III are 50% each, IV-V are 20% each; states follow a US-census-like skew
 so subscription aggregation sees realistic group sizes (§5.2). The same
 generator calls with the same ``numpy.random.Generator`` state give the
 same arrays as the reference package, so both packages can be fed
-identical batches.
+identical batches; ``TokenStream`` gives the reference's token batches bit
+for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
@@ -79,3 +82,37 @@ def subscriptions_by_population(rng: np.random.Generator, n: int,
     params = rng.choice(50, size=n, p=STATE_WEIGHTS / STATE_WEIGHTS.sum())
     brokers = rng.integers(0, num_brokers, n)
     return params.astype(np.int32), brokers.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# LM token pipeline (sharded-host loading pattern)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic synthetic next-token stream: each host generates only its
+    shard (seeded by (host_id, step)), mirroring per-host data loading.
+    Batches are numpy int32 arrays; the caller moves them to its device."""
+
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    num_hosts: int = 1
+    host_id: int = 0
+    seed: int = 0
+
+    def batch(self, step: int) -> dict:
+        per_host = self.global_batch // self.num_hosts
+        rng = np.random.default_rng(
+            (self.seed, self.host_id, step, 0xBADDA7A))
+        # Markov-ish structure so the LM has something learnable.
+        base = rng.integers(0, self.vocab_size, (per_host, self.seq_len + 1))
+        run = rng.random((per_host, self.seq_len + 1)) < 0.5
+        toks = base.copy()
+        for t in range(1, self.seq_len + 1):
+            toks[:, t] = np.where(run[:, t],
+                                  (toks[:, t - 1] + 1) % self.vocab_size,
+                                  toks[:, t])
+        return {"tokens": toks[:, :-1].astype(np.int32),
+                "labels": toks[:, 1:].astype(np.int32)}

@@ -12,6 +12,21 @@ taken, as by the reference's default path (its einsum plain version); the
 reference's Pallas wrapper alone refuses a non-causal S off its tile, and
 ``tq`` / ``tk`` are taken for its signature and not used. ``check_inputs``
 holds what the kernel takes, 16-byte-aligned tensors included.
+
+A CUDA call goes through ``_FlashAttention``, a
+``torch.autograd.Function``. Its forward is the kernel launch, counted in
+``LAUNCHES``; under autograd (training) it keeps q, k and v. Its backward runs the plain
+version on them under ``torch.enable_grad()`` and returns that graph's
+gradients for q, k and v: the gradient of the function the kernel computes,
+which the kernel matches to bf16 rounding. The reference has no backward
+kernel (it trains through its plain attention), so the port has none
+either. The cost is the plain version's memory in the backward, one call at
+a time: at tinyllama's training microbatch (B 2, H 32, S 2,048) each float32
+(B, H, S, S) tensor of its graph (the logits, the masked logits, the
+softmax, its upcast and their gradients) takes 1.07 GB, about 4 to 6 GB in
+all, freed before the next layer's backward. Under ``layers.remat`` the
+forward runs again in the backward, so a training step launches the kernel
+twice an attention block and microbatch.
 """
 from __future__ import annotations
 
@@ -41,7 +56,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else q.shape[3] ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
-    return _launch(q, k, v, causal, float(scale))
+    return _FlashAttention.apply(q, k, v, causal, float(scale))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _launch(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention(*inputs, causal=ctx.causal,
+                                      scale=ctx.scale)
+        grads = torch.autograd.grad(out, inputs, grad)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

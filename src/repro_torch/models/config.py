@@ -3,8 +3,9 @@
 The same fields as the reference's ``models/config.py`` (so a config reads
 the same in both packages), with ``torch`` dtypes in place of ``jnp`` ones. A
 model is ``superlayer_repeat`` superlayers, each applying ``block_pattern``
-in order. Fields that steer the reference's mesh and
-compiler (``remat``, ``seq_shard_activations``,
+in order. ``remat`` recomputes each layer's activations in the backward
+(``layers.remat``), which changes memory and time, not results. Fields that
+steer the reference's mesh and compiler (``seq_shard_activations``,
 ``weight_stationary_decode``, ``decode_loop``) are kept for parity and do not
 change what the port computes.
 """

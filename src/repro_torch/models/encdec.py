@@ -6,7 +6,9 @@ audio frontend is a stub, as in the reference). Decoder: causal
 self-attention, cross-attention over the encoder's output and the SwiGLU
 MLP, with self KV caches and each layer's cross K/V computed once at
 prefill. Cross-attention applies no RoPE, to q or to k, in prefill and in
-decode. Parameters: ``embed``, ``enc_layers`` and ``dec_layers`` (lists
+decode. In the training forward each encoder and decoder layer runs under
+``layers.remat`` when ``cfg.remat``, as the reference's scan bodies run
+under ``jax.checkpoint``. Parameters: ``embed``, ``enc_layers`` and ``dec_layers`` (lists
 with one tree per layer; the reference stacks them on axis 0 and scans),
 ``enc_norm``, ``final_norm`` and ``head``. The serving caches are a list
 with one dict per decoder layer, ``{k, v, ck, cv}``, each (B, KH, S, hd)
@@ -26,7 +28,8 @@ from repro_torch.models import attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import TensorSpec, kv_cache_shapes
 from repro_torch.models.layers import (init_dense, mlp_apply, mlp_init,
-                                       rms_norm, rope_frequencies)
+                                       remat, rms_norm, rope_frequencies)
+from repro_torch.models.lm import token_nll
 
 
 def _norm(cfg: ModelConfig, device) -> torch.Tensor:
@@ -79,13 +82,18 @@ def encode(params, cfg: ModelConfig, embeds: torch.Tensor) -> torch.Tensor:
     """(B, Se, D) frame embeddings -> the encoder's output (B, Se, D)."""
     x = embeds.to(cfg.compute_dtype)
     cos, sin = _rope(cfg, x.shape[1], x.device)
+    body = remat(_enc_layer, cfg.remat)
     for p in params["enc_layers"]:
-        x = x + attention.attn_apply(
-            p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cos, sin,
-            causal=False)
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                          cfg.compute_dtype)
+        x = body(p, x, cfg, cos, sin)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_layer(p, x: torch.Tensor, cfg: ModelConfig, cos, sin):
+    x = x + attention.attn_apply(
+        p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cos, sin,
+        causal=False)
+    return x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                         cfg.compute_dtype)
 
 
 def _cross_kv(p, enc_out: torch.Tensor, cfg: ModelConfig):
@@ -124,14 +132,33 @@ def forward(params, cfg: ModelConfig, src_embeds: torch.Tensor,
     enc_out = encode(params, cfg, src_embeds)
     x = params["embed"][tgt_tokens].to(cfg.compute_dtype)
     cos, sin = _rope(cfg, x.shape[1], x.device)
+    body = remat(_dec_layer, cfg.remat)
     for p in params["dec_layers"]:
-        x = x + attention.attn_apply(
-            p["self_attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cos,
-            sin, causal=True)
-        x = x + _cross(p, x, cfg, cos, sin, *_cross_kv(p["cross_attn"],
-                                                       enc_out, cfg))
-        x = x + _mlp(p, x, cfg)
+        x = body(p, x, cfg, cos, sin, enc_out)
     return _logits(params, cfg, x)
+
+
+def _dec_layer(p, x: torch.Tensor, cfg: ModelConfig, cos, sin,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    x = x + attention.attn_apply(
+        p["self_attn"], rms_norm(x, p["norm1"], cfg.norm_eps), cfg, cos,
+        sin, causal=True)
+    x = x + _cross(p, x, cfg, cos, sin, *_cross_kv(p["cross_attn"], enc_out,
+                                                   cfg))
+    return x + _mlp(p, x, cfg)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Teacher-forced loss over ``batch`` (``embeds`` frames, decoder
+    ``tokens``, ``labels``): the mean over every label, (loss, {"loss",
+    "aux" (0), "ntokens" (labels.numel())}), float32 0-d tensors."""
+    logits = forward(params, cfg, batch["embeds"], batch["tokens"])
+    labels = batch["labels"]
+    loss = torch.mean(token_nll(logits, labels, cfg))
+    return loss, {"loss": loss,
+                  "aux": torch.zeros((), device=loss.device),
+                  "ntokens": torch.full((), float(labels.numel()),
+                                        device=loss.device)}
 
 
 # ---------------------------------------------------------------------------

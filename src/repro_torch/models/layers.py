@@ -1,4 +1,5 @@
-"""Shared layers: RMSNorm, RoPE, the SwiGLU MLP and the init helper.
+"""Shared layers: RMSNorm, RoPE, the SwiGLU MLP, the init helper and
+``remat``.
 
 The reference's sharding hook ``shard()`` is a no-op outside a mesh; the port
 has no mesh yet (ROADMAP items 15 and 18), so it is left out. Weights keep
@@ -6,10 +7,11 @@ the reference's (in, out) layout, so ``x @ W`` reads the same.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -82,3 +84,19 @@ def mlp_apply(p: dict, x: torch.Tensor, compute_dtype: torch.dtype
     h = F.silu(x @ p["gate"].to(compute_dtype), inplace=True)
     h.mul_(x @ p["up"].to(compute_dtype))
     return h @ p["down"].to(compute_dtype)
+
+
+def remat(fn: Callable, enabled: bool) -> Callable:
+    """``fn`` under activation checkpointing when ``enabled`` and autograd is
+    recording (the reference's ``jax.checkpoint`` around each scanned
+    layer): only its inputs are kept, and the backward runs it again, kernel
+    launches included. Nothing in a layer draws random numbers, so the RNG
+    state is not stashed."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return run

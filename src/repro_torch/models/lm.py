@@ -1,13 +1,15 @@
-"""Decoder-only causal LM: forward, prefill and cached decode.
+"""Decoder-only causal LM: the training loss, forward, prefill and cached
+decode.
 
 Parameters are a plain tensor tree: ``embed`` (padded vocab, d_model),
 ``layers`` (a list with one superlayer tree per depth; the reference stacks
 them on axis 0 and scans), ``final_norm`` and, untied, ``head``. The
-reference's scan over superlayers is a Python loop here; its two decode
-loops (``decode_loop`` "carry" and "scan") are the same in-place loop, with
-the caches updated where they lie. With a ``"shared_attn"`` block in the
-pattern, ``shared`` holds that block's one parameter set. ``loss_fn`` waits
-for training (ROADMAP item 17b).
+reference's scan over superlayers is a Python loop here, each superlayer
+under ``layers.remat`` when ``cfg.remat`` (the reference's
+``jax.checkpoint`` around the scan body); its two decode loops
+(``decode_loop`` "carry" and "scan") are the same in-place loop, with the
+caches updated where they lie. With a ``"shared_attn"`` block in the
+pattern, ``shared`` holds that block's one parameter set.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import torch
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import TensorSpec
-from repro_torch.models.layers import init_dense, rms_norm, rope_frequencies
+from repro_torch.models.layers import (init_dense, remat, rms_norm,
+                                       rope_frequencies)
+
+AUX_WEIGHT = 0.01
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -79,9 +84,9 @@ def hidden(params, cfg: ModelConfig, tokens=None, embeds=None
     x = _embed_in(params, cfg, tokens, embeds)
     cos, sin = _rope(cfg, x.shape[1], x.device)
     aux = torch.zeros((), device=x.device)
+    body = remat(blocks.superlayer_train, cfg.remat)
     for layer_p in params["layers"]:
-        x, a = blocks.superlayer_train(layer_p, params.get("shared"), x, cfg,
-                                       cos, sin)
+        x, a = body(layer_p, params.get("shared"), x, cfg, cos, sin)
         aux = aux + a
     return x, aux / max(1, cfg.superlayer_repeat)
 
@@ -91,6 +96,36 @@ def forward(params, cfg: ModelConfig, tokens=None, embeds=None
     """Full-sequence forward -> (logits (B, S, padded vocab), aux ())."""
     x, aux = hidden(params, cfg, tokens, embeds)
     return head_out(params, cfg, x), aux
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """Per-position negative log-likelihood, float32: the logits in float32
+    with the vocab padding at -1e30, logsumexp minus the label's logit."""
+    logits = logits.float()
+    if cfg.padded_vocab != cfg.vocab_size:     # mask vocab padding
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return lse - tgt
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss over ``batch`` (``tokens`` or ``embeds``,
+    ``labels``, optional ``loss_mask``): (loss + AUX_WEIGHT * aux,
+    {"loss", "aux", "ntokens"}), all float32 0-d tensors."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"))
+    nll = token_nll(logits, batch["labels"], cfg)
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    ntokens = torch.sum(mask)
+    loss = torch.sum(nll * mask) / torch.clamp(ntokens, min=1.0)
+    total = loss + AUX_WEIGHT * aux
+    return total, {"loss": loss, "aux": aux, "ntokens": ntokens}
 
 
 # ---------------------------------------------------------------------------

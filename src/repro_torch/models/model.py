@@ -1,6 +1,7 @@
 """ModelApi: the step builders' one interface over every architecture family.
 
   init(generator)                      -- parameters from an explicit generator
+  loss(params, batch)                  -- training objective -> (loss, metrics)
   prefill(params, batch, max_len)      -- prompt -> (logits, caches, pos)
   decode(params, caches, pos, batch)   -- one token -> (logits, caches)
   param_count(), active_param_count()
@@ -8,9 +9,8 @@
 
 Decoder-only families go through ``lm``, the encoder-decoder through
 ``encdec``; the ``embed`` frontend (pixtral, the enc-dec encoder) takes
-precomputed embeddings in ``batch["embeds"]``. ``loss`` (training, ROADMAP
-item 17b) and the partition specs (the mesh, item 18) raise
-``NotImplementedError``.
+precomputed embeddings in ``batch["embeds"]``. The partition specs (the
+mesh, ROADMAP item 18) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig, not_ported
 from repro_torch.models.kvcache import TensorSpec
@@ -43,18 +44,6 @@ SHAPES = {
 }
 
 
-def _leaves(tree, path=()):
-    """(path of keys, tensor) of every leaf of a parameter tree."""
-    if isinstance(tree, dict):
-        for key, node in tree.items():
-            yield from _leaves(node, path + (key,))
-    elif isinstance(tree, list):
-        for i, node in enumerate(tree):
-            yield from _leaves(node, path + (i,))
-    else:
-        yield path, tree
-
-
 class ModelApi:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg.validate()
@@ -75,7 +64,7 @@ class ModelApi:
 
     def param_count(self) -> int:
         return sum(math.prod(t.shape)
-                   for _, t in _leaves(self.abstract_params()))
+                   for t in tree.leaves(self.abstract_params()))
 
     def active_param_count(self) -> int:
         """Parameters a token passes through: each MoE expert weight counts
@@ -84,7 +73,7 @@ class ModelApi:
         if not (cfg.n_experts and cfg.moe_top_k):
             return self.param_count()
         total = 0
-        for path, leaf in _leaves(self.abstract_params()):
+        for path, leaf in tree.leaves_with_path(self.abstract_params()):
             n = math.prod(leaf.shape)
             if "moe" in path and path[-1] in ("gate", "up", "down"):
                 n = n * cfg.moe_top_k // cfg.n_experts
@@ -97,7 +86,11 @@ class ModelApi:
     # -- steps --------------------------------------------------------------
 
     def loss(self, params, batch):
-        raise not_ported("training (ModelApi.loss)", "item 17b")
+        """(total loss, {"loss", "aux", "ntokens"}): the decoder's
+        next-token loss plus the MoE aux term, or the enc-dec's mean loss."""
+        if self.cfg.is_encdec:
+            return encdec.loss_fn(params, self.cfg, batch)
+        return lm.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
         cfg = self.cfg

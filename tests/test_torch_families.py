@@ -112,7 +112,8 @@ def test_prefill_and_decode_match_the_reference(rng, arch):
 def test_param_counts_and_specs_match_the_reference(arch):
     """param_count and active_param_count at full size (the port's tree on
     the meta device) and reduced; cache shapes and input specs of every
-    supported shape cell; ``loss`` raises naming item 17b."""
+    supported shape cell; ``loss`` at the ``train_4k`` cell's input specs
+    (cut to batch 2 and 8 positions) gives a finite float32 loss."""
     for get_j, get_t in ((jconfigs.get_config, tconfigs.get_config),
                          (jconfigs.get_reduced, tconfigs.get_reduced)):
         japi, tapi = JApi(get_j(arch)), TApi(get_t(arch))
@@ -130,8 +131,22 @@ def test_param_counts_and_specs_match_the_reference(arch):
                                   is_leaf=lambda x: hasattr(x, "dtype"))
             want = jax.tree.leaves(japi.cache_shapes(name))
             assert [tuple(s.shape) for s in got] == [s.shape for s in want]
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        tapi.loss(None, None)
+    tapi = TApi(tconfigs.get_reduced(arch))
+    params = tapi.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {}
+    for key, spec in tapi.input_specs("train_4k").items():
+        shape = (2, 8) + tuple(spec.shape[2:])
+        if spec.dtype == torch.int32:
+            batch[key] = torch.tensor(rng.integers(
+                0, tapi.cfg.vocab_size, shape).astype(np.int32))
+        else:
+            width = shape[:2] + (tapi.cfg.d_model,)
+            batch[key] = torch.tensor(rng.normal(size=width)
+                                      .astype(np.float32))
+    total, metrics = tapi.loss(params, batch)
+    assert total.dtype == torch.float32 and bool(torch.isfinite(total))
+    assert float(metrics["ntokens"]) == 16
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

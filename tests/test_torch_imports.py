@@ -15,6 +15,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "enriched_pipeline_torch.py",
     ROOT / "examples" / "crime_alerts_torch.py",
+    ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "profile_main_path.py"]
 
 
@@ -55,7 +56,10 @@ def test_engine_import_leaves_jax_unloaded():
             "repro_torch.core.planner, repro_torch.launch.plan_search, "
             "repro_torch.configs.bad_default, repro_torch.core.sharded, "
             "repro_torch.distributed.collectives, "
-            "repro_torch.distributed.partition; "
+            "repro_torch.distributed.partition, repro_torch.launch.train, "
+            "repro_torch.launch.steps, repro_torch.optim, "
+            "repro_torch.ckpt.manager, repro_torch.runtime.failure, "
+            "repro_torch.data.synthetic, repro_torch.tree; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -703,3 +703,77 @@ def test_sp_decode_attention_matches_one_flash_decode(rng, cuda_device,
     assert _within(got.float(), fd_ref.decode_attention(q, k, v, kv_len)
                    .float(), dtype)
     assert not got[7].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_under_autograd(rng, cuda_device, dtype):
+    """``flash_attention`` on tensors that need a gradient goes through its
+    ``torch.autograd.Function``: the forward launches the kernel (one
+    launch a call, within the forward tolerance of the plain version), the
+    backward launches nothing and gives q, k and v the plain version's
+    gradient exactly (it is the plain version's graph, recomputed). Causal,
+    non-causal with Sk != Sq (the enc-dec's encoder and cross-attention),
+    head dim 80, and only q needing a gradient."""
+    cases = [(2, 8, 2, 130, 64, True, 130), (1, 32, 4, 256, 64, True, 256),
+             (2, 16, 16, 4, 64, False, 1024), (1, 6, 2, 70, 32, False, 300),
+             (2, 8, 8, 40, 80, True, 40)]
+    for b, h, kh, s, d, causal, sk in cases:
+        q = _normal(rng, (b, h, s, d), dtype, cuda_device)
+        k, v = (_normal(rng, (b, kh, sk, d), dtype, cuda_device)
+                for _ in range(2))
+        cot = _normal(rng, (b, h, s, d), dtype, cuda_device)
+        for need in ((True, True, True), (True, False, False)):
+            ins = [t.clone().requires_grad_(n) for t, n in zip((q, k, v),
+                                                               need)]
+            before = fa_ops.LAUNCHES
+            out = fa_ops.flash_attention(*ins, causal=causal)
+            assert out.grad_fn is not None
+            assert fa_ops.LAUNCHES == before + 1
+            want = fa_ref.flash_attention(*ins, causal=causal)
+            assert _within(out.detach(), want.detach(), dtype)
+            wrt = [t for t in ins if t.requires_grad]
+            got = torch.autograd.grad(out, wrt, cot)
+            plain = torch.autograd.grad(want, wrt, cot)
+            torch.cuda.synchronize()
+            assert fa_ops.LAUNCHES == before + 1
+            for g, p in zip(got, plain):
+                assert g.dtype == dtype and g.shape == p.shape
+                assert torch.equal(g, p), ((b, h, kh, s, d, causal, sk),
+                                           float((g - p).abs().max()))
+    # without a gradient to record, the plain launch: no graph
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None
+
+
+def test_train_step_on_the_card_reaches_every_leaf(cuda_device):
+    """One accumulating train step of a small tinyllama-shaped model on the
+    card (bf16 compute, remat on): every parameter leaf, the attention
+    projections included, gets a nonzero gradient through the kernel, and
+    the kernel launches twice an attention block and microbatch (forward
+    and remat recompute)."""
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.launch.steps import (build_train_step,
+                                         default_optimizer, value_and_grad)
+    from repro_torch.models.model import ModelApi
+    cfg = dataclasses.replace(configs.get_reduced("tinyllama-1.1b"),
+                              compute_dtype=torch.bfloat16, remat=True)
+    api = ModelApi(cfg)
+    params = api.init(torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.tensor(rng.integers(0, cfg.vocab_size, (4, 64))
+                             .astype(np.int32), device=cuda_device)
+             for k in ("tokens", "labels")}
+    before = fa_ops.LAUNCHES
+    _, grads = value_and_grad(api, params, batch)
+    assert fa_ops.LAUNCHES - before == 2 * cfg.superlayer_repeat
+    zero = [path for (path, _), g in zip(tree.leaves_with_path(params), grads)
+            if not bool(g.ne(0).any())]
+    assert not zero, zero
+    opt = default_optimizer(cfg)
+    state = opt.init(params)
+    before = fa_ops.LAUNCHES
+    _, _, metrics = build_train_step(api, opt, accum=2)(params, state, batch)
+    assert fa_ops.LAUNCHES - before == 2 * 2 * cfg.superlayer_repeat
+    assert bool(torch.isfinite(metrics["loss"]))

@@ -223,15 +223,30 @@ def test_serve_greedy_and_prefill_scores(rng):
 
 
 def test_not_ported_families_raise():
-    """Every family is ported now: each arch id builds its parameters (a
-    reduced config, on the CPU) and its ModelApi; only training is left, so
-    ``loss`` raises naming ROADMAP item 17b (and the partition specs item
-    18)."""
+    """Every family is ported, training included: each arch id builds its
+    parameters (a reduced config, on the CPU) and its ModelApi, and
+    ``loss`` gives a finite float32 loss on seeded inputs (its parity with
+    the reference is test_torch_train_loss.py's); only the partition specs
+    raise, naming ROADMAP item 18."""
+    rng = np.random.default_rng(0)
     for arch in tconfigs.ARCH_IDS:
         api = TApi(tconfigs.get_reduced(arch))
+        cfg = api.cfg
         params = api.init(torch.Generator().manual_seed(0))
-        assert params["embed"].shape[0] == api.cfg.padded_vocab
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            api.loss(params, None)
+        assert params["embed"].shape[0] == cfg.padded_vocab
+        labels = _t(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32))
+        batch = {"labels": labels}
+        if cfg.frontend == "embed" or cfg.is_encdec:
+            batch["embeds"] = _t(rng.normal(size=(2, 8, cfg.d_model))
+                                 .astype(np.float32))
+        if cfg.frontend == "token" or cfg.is_encdec:
+            batch["tokens"] = labels
+        total, metrics = api.loss(params, batch)
+        assert total.dtype == torch.float32 and total.shape == ()
+        assert bool(torch.isfinite(total))
+        assert float(metrics["ntokens"]) == 16
+        np.testing.assert_allclose(
+            float(total), float(metrics["loss"]) + 0.01 * float(metrics["aux"]),
+            rtol=1e-6)
         with pytest.raises(NotImplementedError, match="item 18"):
             api.param_pspecs()

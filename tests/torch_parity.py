@@ -44,3 +44,16 @@ def cuda_device():
         pytest.skip("needs a CUDA card (the kernel is compared with its plain "
                     "version on the card)")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op torch thread for the test: reduced models are many
+    small ops, which run as fast on one thread and do not then contend
+    with the suite's other workers. Test modules opt in with an autouse
+    fixture that requests it."""
+    torch = pytest.importorskip("torch")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

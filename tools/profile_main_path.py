@@ -2,7 +2,7 @@
 """Where a main-path tick of the PyTorch port spends its time, on one card.
 
     python3 tools/profile_main_path.py [--ticks 6]
-        [--path per_channel|fused|serve|enriched]
+        [--path per_channel|fused|serve|enriched|train]
 
 Runs one of ``chip_smoke.py``'s main paths (same engine, channels and
 subscription counts): the per-channel ``execute_channel`` tick or the fused
@@ -10,11 +10,14 @@ subscription counts): the per-channel ``execute_channel`` tick or the fused
 phase (``launch/serve.py::serve``, qwen2-1.5b at full width, at
 ``chip_smoke.SERVE``'s shape); or one ``LMScorer.score`` call of its
 enriched tick (qwen2-1.5b at full width on one join group's 16,384 slots
-of 10 record fields), under ``torch.profiler``, and prints the operators
+of 10 record fields); or one train step of its phase 11 (tinyllama-1.1b
+at full width and depth, ``chip_smoke.TRAIN``'s batch, 8 microbatches),
+under ``torch.profiler``, and prints the operators
 that take the most device time and the most host time, and the device's
 busy share of the profiled wall time (the sum of kernel times over the wall
 clock; overlapping kernels would count twice, and the port launches on one
-stream). The trace goes to ``chiprun_out/<path>_trace.json``.
+stream). The trace goes to ``chiprun_out/<path>_trace.json``, except a
+train step's, whose hundreds of thousands of events are left out.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=6)
     ap.add_argument("--path", choices=("per_channel", "fused", "serve",
-                                       "enriched"), default="per_channel")
+                                       "enriched", "train"),
+                    default="per_channel")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_main_path: CUDA is not available", file=sys.stderr)
@@ -49,6 +53,8 @@ def main() -> int:
         run, what = serve_runner(dev), "one serve call"
     elif args.path == "enriched":
         run, what = score_runner(dev), "one LMScorer.score call"
+    elif args.path == "train":
+        run, what = train_runner(dev), "one train step"
     else:
         path = (chip_smoke.main_path if args.path == "per_channel"
                 else chip_smoke.fused_path)
@@ -87,9 +93,11 @@ def main() -> int:
                        max_name_column_width=60))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15,
                        max_name_column_width=60))
-    out = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, f"{args.path}_trace.json"))
+    if args.path != "train":
+        out = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out,
+                                              f"{args.path}_trace.json"))
     return 0
 
 
@@ -144,6 +152,36 @@ def score_runner(dev):
         assert scores.shape == (slots,) and bool(torch.isfinite(scores).all())
         return (f"{slots} slots x {toks.shape[1]} tokens: score "
                 f"{start.elapsed_time(end):.1f} ms (CUDA events)")
+
+    return run
+
+
+def train_runner(dev):
+    """One train step as phase 11 runs it (``build_train_step`` with the
+    config's optimizer and accum, seeded weights, ``TokenStream`` batch 0),
+    after a warm-up step; returns its timing line."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_train_step, default_optimizer
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.model import ModelApi
+    cfg = configs.get_config(chip_smoke.TRAIN_ARCH)
+    api = ModelApi(cfg)
+    params = api.init(torch.Generator(dev).manual_seed(chip_smoke.SEED))
+    opt = default_optimizer(cfg)
+    state = opt.init(params)
+    b, s = chip_smoke.TRAIN["batch"], chip_smoke.TRAIN["seq"]
+    accum = min(cfg.grad_accum, b)
+    step = build_train_step(api, opt, accum=accum)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in make_batch_fn(cfg, b, s)(0).items()}
+    step(params, state, batch)                             # warm-up step
+
+    def run() -> str:
+        t = time.perf_counter()
+        _, _, metrics = step(params, state, batch)
+        loss = float(metrics["loss"])
+        return (f"{cfg.name}, batch {b} x {s}, accum {accum}: step "
+                f"{(time.perf_counter() - t) * 1e3:.1f} ms, loss {loss:.4f}")
 
     return run
 
