@@ -127,6 +127,22 @@ exits non-zero, printing no result, without them. Phases:
    loss, exactly the leaves without a gradient unmoved (pixtral's token
    table, which its frontend never reads), launches exact, peak memory;
    two steps each, the second timed.
+12. Mesh: (a) the parameter, optimizer-state and cache bytes per device
+   of all ten arch ids under their sanitized spec trees, over both
+   production meshes ((16, 16) and (2, 16, 16) on ``meta``; host
+   arithmetic); on qwen2-1.5b at its published width and depth: (b) its
+   parameters and AdamW state saved and restored with ``param_pspecs`` /
+   ``state_pspecs`` shardings onto a (2, 2) ("data", "model") mesh whose
+   four positions are the one card, every 2-d leaf in four blocks, every
+   gathered leaf bit-equal to the saved one; (c) its 28 layers pipelined
+   (``pipeline_forward``) in 2 and in 4 stages on the card over 8
+   microbatches of 2 x 2,048 hidden states, bit-equal to the layers
+   applied to each microbatch in turn, 28 x 8 ``flash_attention`` launches
+   a run; (d) ``compressed_psum_tree`` over a float32 tree shaped like its
+   parameters (1.54 B entries) on a ("pod",) axis of 1, 2 and 4 positions
+   of the card: the embedding and layer 0 equal to the port's CPU result,
+   every leaf's error-feedback identity; (e) ``selectivity`` of the five
+   substrate conditions over 1M tweets on the card equal to the CPU's.
 
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
@@ -143,7 +159,8 @@ and ``predicate_filter`` over the whole 2M-row ring, and
 sequence-parallel decode, and phase 10's new shapes: ``flash_attention``
 at zamba2's prefill (head dim 80), seamless's encoder and its
 cross-attention (Sk != Sq), ``flash_attention`` at phase 11's training
-microbatch, ``flash_decode`` at zamba2's decode and at
+microbatch and at phase 12's pipeline stage (2 x 2,048 positions of
+qwen2-1.5b), ``flash_decode`` at zamba2's decode and at
 seamless's cross step (``flash_decode``'s
 cluster size is printed and checked at each shape), ``join_compact``,
 ``flash_attention`` and ``flash_decode`` beside the floor under their time (the empty kernel of
@@ -161,6 +178,7 @@ import ctypes
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -3264,6 +3282,371 @@ def training_phase(dev) -> dict:
     return dict(tr, grad=gp, others=others)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh, the partition specs, the pipeline and the compression
+# ---------------------------------------------------------------------------
+
+
+def spec_bytes_phase() -> list:
+    """(a) Per-device bytes under the sanitized spec trees over both
+    production meshes (``meta`` devices, host arithmetic): each arch id's
+    parameters, its default optimizer's state and, for each shape it
+    supports, its serving caches."""
+    from repro_torch import configs, tree
+    from repro_torch.distributed import param_specs as psp
+    from repro_torch.distributed.partition import device_bytes
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import default_optimizer
+    from repro_torch.models.model import SHAPES, ModelApi
+
+    meshes = [make_production_mesh(multi_pod=m) for m in (False, True)]
+    rows = []
+    for arch in configs.ARCH_IDS:
+        api = ModelApi(configs.get_config(arch))
+        params, specs = api.abstract_params(), api.param_pspecs()
+        opt = default_optimizer(api.cfg)
+        trees = {"params": (params, specs),
+                 "state": (opt.init(params), opt.state_pspecs(specs))}
+        trees.update({name: (api.layer_cache_shapes(name),
+                             api.cache_pspecs(name))
+                      for name in SHAPES if api.supports(name)})
+        for mesh in meshes:
+            got = {k: device_bytes(tree.leaves(x), tree.leaves(sp), mesh)
+                   for k, (x, sp) in trees.items()}
+            rows.append(dict(
+                arch=arch, mesh="x".join(map(str, mesh.shape.values())),
+                params=got.pop("params"), state=got.pop("state"),
+                caches=got))
+    return rows
+
+
+def restore_phase(dev, cfg, grid) -> dict:
+    """(b) ``cfg``'s parameters (from the seed) and AdamW state (its
+    moments filled from the seed, m normal and v its square, so that no
+    leaf is zeros) saved, then restored with ``param_pspecs`` /
+    ``state_pspecs`` shardings over a ``grid`` ("data", "model") mesh whose
+    positions are all ``dev``: every gathered leaf bit-equal to the saved
+    one, every 2-d leaf in as many distinct blocks as the grid has
+    positions. Under the checkout's ``build/``, removed after."""
+    import shutil
+    from repro_torch import tree
+    from repro_torch.ckpt.manager import CheckpointManager
+    from repro_torch.distributed.partition import NamedSharding, sanitize_spec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import ModelApi
+    from repro_torch.optim import make_optimizer
+
+    api = ModelApi(cfg)
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    params = api.init(gen)
+    opt = make_optimizer("adamw")
+    state = opt.init(params)
+    for m, v in zip(tree.leaves(state.m), tree.leaves(state.v)):
+        m.normal_(generator=gen).mul_(1e-3)
+        torch.mul(m, m, out=v)
+    state.count.fill_(7)
+    saved = {"params": params, "opt": state}
+    root = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    mesh = make_mesh(grid, ("data", "model"), dev)
+    specs = {"params": api.param_pspecs(),
+             "opt": opt.state_pspecs(api.param_pspecs())}
+    shardings = tree.tree_map(
+        lambda spec, x: NamedSharding(mesh, sanitize_spec(spec, x.shape,
+                                                          mesh)),
+        specs, saved)
+    try:
+        mgr = CheckpointManager(root, async_save=False)
+        sync(dev)
+        t = time.perf_counter()
+        mgr.save(1, saved)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = mgr.restore(1, saved, shardings=shardings)
+        sync(dev)
+        restore_s = time.perf_counter() - t
+        on_disk = sum(os.path.getsize(os.path.join(root, "step_00000001", f))
+                      for f in os.listdir(os.path.join(root,
+                                                       "step_00000001")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    blocks = largest = cut = 0
+    for st, want in zip(tree.leaves(got), tree.leaves(saved)):
+        distinct = {b.data_ptr(): b for b in st.blocks.values()}
+        assert all(b.device == dev for b in distinct.values())
+        blocks += len(distinct)
+        largest = max(largest, *(b.numel() * b.element_size()
+                                 for b in distinct.values()))
+        if want.dim() == 2:
+            assert len(distinct) == mesh.size, (st.sharding.spec, want.shape)
+            cut += 1
+        g = st.gather()
+        bits = torch.int16 if g.dtype == torch.bfloat16 else g.dtype
+        assert g.dtype == want.dtype and torch.equal(g.view(bits),
+                                                     want.view(bits))
+    n = len(tree.leaves(saved))
+    del got, saved, params, state
+    return dict(grid=list(grid), leaves=n, cut=cut, blocks=blocks,
+                largest_block=largest, bytes=on_disk, save_s=save_s,
+                restore_s=restore_s)
+
+
+def pipeline_phase(dev, cfg, shape: dict) -> dict:
+    """(c) ``cfg``'s superlayers (from the seed) stacked into S stages of
+    depth / S each, for each S in ``shape["stages"]``, all on ``dev``;
+    ``stage_fn`` applies a stage's superlayers with ``superlayer_train``
+    under ``torch.no_grad()``; ``shape["micro"]`` microbatches of
+    (batch, seq, d_model) hidden states from the seed, in the compute
+    dtype. Each run's output bit-equal to the 28 superlayers applied to
+    each microbatch in turn (the same kernels on the same shapes in the
+    same order); the launch counts set to 0 just before each S's first
+    pipelined run and read just after, with the largest shape each kernel
+    was launched at (``launches`` and ``shapes`` of the first S, for the
+    timed row). Each forward is timed ``REPEATS`` times."""
+    from repro_torch import tree
+    from repro_torch.distributed.pipeline import (bubble_fraction,
+                                                  pipeline_forward)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rope_frequencies
+    from repro_torch.models.model import ModelApi
+
+    depth, m = cfg.superlayer_repeat, shape["micro"]
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    layers = ModelApi(cfg).init(gen)["layers"]
+    xs = torch.randn((m, shape["batch"], shape["seq"], cfg.d_model),
+                     generator=gen, device=dev).to(cfg.compute_dtype)
+    cos, sin = rope_frequencies(cfg.resolved_head_dim, shape["seq"],
+                                cfg.rope_theta, dev)
+
+    def apply(layer_list, x):
+        for p in layer_list:
+            x, _ = blocks.superlayer_train(p, None, x, cfg, cos, sin)
+        return x
+
+    def stage_fn(stage_params, x):
+        k = tree.leaves(stage_params)[0].shape[0]
+        return apply([tree.tree_map(lambda a, j=j: a[j], stage_params)
+                      for j in range(k)], x)
+
+    with torch.no_grad():
+        apply(layers[:1], xs[0])                        # warm-up
+        seq_ms = []
+        for _ in range(REPEATS):
+            sync(dev)
+            t = time.perf_counter()
+            want = torch.stack([apply(layers, xs[i]) for i in range(m)])
+            sync(dev)
+            seq_ms.append(1e3 * (time.perf_counter() - t))
+        runs = {}
+        for s in shape["stages"]:
+            stacked = tree.tree_map(
+                lambda *ls, s=s: torch.stack(ls).unflatten(0, (s, depth // s)),
+                *layers)
+            run = pipeline_forward(make_mesh((s,), ("pod",), dev), "pod",
+                                   stage_fn, m)
+            ms = []
+            for rep in range(REPEATS):
+                sync(dev)
+                if rep == 0:
+                    reset_launch_counts()
+                t = time.perf_counter()
+                out = run(stacked, xs)
+                sync(dev)
+                ms.append(1e3 * (time.perf_counter() - t))
+                if rep == 0:
+                    launches, shapes = launch_counts(), launch_shapes()
+            del stacked
+            bits = torch.int16 if out.dtype == torch.bfloat16 else out.dtype
+            equal = torch.equal(out.view(bits), want.view(bits))
+            err = max_abs_err(out, want)
+            assert equal, (s, err)
+            assert torch.isfinite(out.float()).all()
+            if dev.type == "cuda":
+                assert launches["flash_attention"] == depth * m, launches
+                assert sum(launches.values()) == depth * m, launches
+            runs[s] = dict(ms=ms, launches=launches["flash_attention"],
+                           shape=shapes["flash_attention"],
+                           bubble=bubble_fraction(s, m), equal=equal)
+    # every stage count launches the kernel at one shape: the timed row's
+    first = runs[shape["stages"][0]]
+    assert all(r["shape"] == first["shape"] for r in runs.values()), runs
+    return dict(seq_ms=seq_ms, runs=runs, depth=depth,
+                launches={"flash_attention": first["launches"]},
+                shapes={"flash_attention": first["shape"]}, **shape)
+
+
+def compression_phase(dev, cfg, pods) -> dict:
+    """(d) A float32 tree shaped like ``cfg``'s parameters, N(0, 1e-3)
+    from the seed, through ``compressed_psum_tree`` with zero residuals
+    over a ("pod",) axis of n positions, all on ``dev``, for each n in
+    ``pods``, ``REPEATS`` times each (the first also pays the caching
+    allocator's growth). The embedding leaf and layer 0's leaves against
+    the port's CPU result (the CPU at n positions for layer 0, at 1 for
+    the embedding: for n a power of two the mean's arithmetic is exact, so
+    every n gives the same bits): 0 elements off, output and residual.
+    Every leaf: the error-feedback identity, new residual == target -
+    dequantize(q, scale) up to the product's and the FMA's roundings
+    (float64, |r + out - x| <= 2^-24 (|r| + |out|)), and each residual
+    within half a quantization step (max|x| / 127 / 2, up to the rounding
+    of the float32 quotient x / scale)."""
+    from repro_torch import tree
+    from repro_torch.distributed.compression import (compressed_psum_tree,
+                                                     init_residuals)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import ModelApi
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    shapes = ModelApi(cfg).abstract_params()
+    grads = tree.tree_map(
+        lambda p: torch.randn(p.shape, generator=gen, device=dev).mul_(1e-3),
+        shapes)
+    residuals = init_residuals(grads)
+    flat = tree.leaves(grads)
+    numel = sum(x.numel() for x in flat)
+    checked = {"embed": grads["embed"]}
+    checked.update({f"layers.0.{'.'.join(map(str, p))}": x for p, x in
+                    tree.leaves_with_path(grads["layers"][0])})
+    host = {k: x.to(cpu) for k, x in checked.items()}
+    embed_cpu = compressed_psum_tree(
+        {"embed": host["embed"]},
+        {"embed": torch.zeros_like(host["embed"])},
+        make_mesh((1,), ("pod",), cpu), "pod")
+    runs = {}
+    for n in pods:
+        mesh = make_mesh((n,), ("pod",), dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for rep in range(REPEATS):
+            if rep:
+                del out, new_r
+            sync(dev)
+            t = time.perf_counter()
+            out, new_r = compressed_psum_tree(grads, residuals, mesh, "pod")
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else 0.0)
+        layer0 = {k: v for k, v in host.items() if k != "embed"}
+        cpu_out, cpu_r = compressed_psum_tree(
+            layer0, {k: torch.zeros_like(v) for k, v in layer0.items()},
+            make_mesh((n,), ("pod",), cpu), "pod")
+        cpu_out["embed"], cpu_r["embed"] = (embed_cpu[0]["embed"],
+                                            embed_cpu[1]["embed"])
+        got_out = {"embed": out["embed"]}
+        got_r = {"embed": new_r["embed"]}
+        for p, x in tree.leaves_with_path(out["layers"][0]):
+            got_out[f"layers.0.{'.'.join(map(str, p))}"] = x
+        for p, x in tree.leaves_with_path(new_r["layers"][0]):
+            got_r[f"layers.0.{'.'.join(map(str, p))}"] = x
+        off = sum(int((got_out[k].cpu().view(torch.int32)
+                       != cpu_out[k].view(torch.int32)).sum())
+                  + int((got_r[k].cpu().view(torch.int32)
+                         != cpu_r[k].view(torch.int32)).sum())
+                  for k in checked)
+        assert off == 0, (n, off)
+        worst = 0.0
+        for x, o, r in zip(flat, tree.leaves(out), tree.leaves(new_r)):
+            x64, o64, r64 = x.double(), o.double(), r.double()
+            excess = ((r64 + o64 - x64).abs()
+                      - 2.0 ** -24 * (r64.abs() + o64.abs())).max()
+            worst = max(worst, float(excess))
+            # half a step, and the float32 quotient's rounding (<= 127.5
+            # in magnitude: half an ulp of 2^-17 relative) at the boundary
+            half = float(x.abs().max()) / 127 / 2
+            assert float(r.abs().max()) <= half * (1 + 2 ** -14), n
+        assert worst <= 0.0, (n, worst)
+        del out, new_r
+        runs[n] = dict(ms=ms, peak_gib=peak, off=off,
+                       int8_bytes=n * numel + 4 * n * len(flat),
+                       f32_bytes=4 * n * numel)
+    return dict(numel=numel, bytes=4 * numel, leaves=len(flat),
+                checked=len(checked), runs=runs)
+
+
+SELECTIVITY = [("about_country", "==", 0), ("retweet_count", ">", 10000),
+               ("hate_speech_rate", ">", 5), ("threatening_rate", ">", 5),
+               ("weapon_mentioned", "==", 1)]
+
+
+def selectivity_phase(dev, rows: int) -> dict:
+    """(e) ``selectivity`` of each of the reference substrate test's five
+    conditions over ``rows`` seeded tweets on ``dev`` equals the CPU's."""
+    from repro_torch.core import predicates as P
+    from repro_torch.core import records as R
+    from repro_torch.data.synthetic import tweet_arrays
+
+    fields, _ = tweet_arrays(np.random.default_rng(SEED + 15), rows, 0)
+    on_dev = torch.from_numpy(fields).to(dev)
+    out = {}
+    for name, op, value in SELECTIVITY:
+        preds = [P.Predicate.parse(
+            R.ENRICHED_TWEET_SCHEMA.index(name), op, value)]
+        got = P.selectivity(on_dev, preds)
+        want = P.selectivity(fields, preds, device="cpu")
+        assert got == want, (name, got, want)
+        out[f"{name} {op} {value}"] = got
+    return out
+
+
+def mesh_phase(dev, cfg, shape: dict) -> dict:
+    """Phase 12: (a)-(e), printed; returns (c)'s result for the kernel
+    line."""
+    card = card_line()
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    rows = spec_bytes_phase()
+    for r in rows:
+        print(f"[mesh] (a) {r['arch']} over {r['mesh']} (meta): bytes per "
+              f"device: parameters {r['params']:,}, optimizer state "
+              f"{r['state']:,}, caches {json.dumps(r['caches'])}")
+    print(f"[mesh] (a) {len(rows)} spec trees in "
+          f"{time.perf_counter() - t:.1f} s (host arithmetic)")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rs = restore_phase(dev, cfg, shape["grid"])
+    print(f"[mesh] (b) {cfg.name} parameters and AdamW state on {card}: "
+          f"{rs['leaves']} leaves, {rs['bytes'] / 1e9:.2f} GB saved in "
+          f"{rs['save_s']:.1f} s, restored onto a {rs['grid']} "
+          f"('data', 'model') mesh of {dev} x {math.prod(rs['grid'])} in "
+          f"{rs['restore_s']:.1f} s: {rs['blocks']} blocks, {rs['cut']} "
+          f"2-d leaves each in {math.prod(rs['grid'])}, largest block "
+          f"{rs['largest_block']:,} B; every gathered leaf bit-equal")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    pp = pipeline_phase(dev, cfg, shape["pipeline"])
+    for s, r in pp["runs"].items():
+        print(f"[pipeline] {cfg.name} on {card}: {pp['depth']} layers in "
+              f"{s} stages on {dev}, {pp['micro']} microbatches of "
+              f"({pp['batch']}, {pp['seq']}, {cfg.d_model}): "
+              f"{json.dumps([round(x, 2) for x in r['ms']])} ms "
+              f"(sequential {json.dumps([round(x, 2) for x in pp['seq_ms']])}"
+              f" ms); "
+              f"bubble_fraction {r['bubble']:.4f}; flash_attention launches "
+              f"{r['launches']}; output bit-equal to the sequential "
+              f"application: {r['equal']}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    cp = compression_phase(dev, cfg, shape["pods"])
+    for n, r in cp["runs"].items():
+        print(f"[compress] {cfg.name}-shaped float32 tree on {card}: "
+              f"{cp['numel']:,} entries ({cp['bytes'] / 1e9:.2f} GB, "
+              f"{cp['leaves']} leaves), ('pod',) axis of {n} on {dev}: "
+              f"{json.dumps([round(x, 2) for x in r['ms']])} ms, "
+              f"max_memory_allocated "
+              f"{r['peak_gib']:.2f} GiB; bytes moved int8 "
+              f"{r['int8_bytes']:,} against float32 {r['f32_bytes']:,}; "
+              f"{cp['checked']} leaves against the CPU, {r['off']} "
+              f"elements off; every leaf's error-feedback identity held")
+    sel = selectivity_phase(dev, shape["selectivity_rows"])
+    print(f"[mesh] (e) selectivity over {shape['selectivity_rows']:,} "
+          f"tweets on {dev}, equal to the CPU's: {json.dumps(sel)}")
+    print(f"[mesh] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return pp
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -3335,6 +3718,13 @@ TRAIN = dict(batch=16, seq=2048, steps=8, ckpt_every=4, fail_at=6)
 TRAIN_GRAD = dict(depth=2, micro=2, seq=2048)
 TRAIN_OTHERS = [("pixtral-12b", dict(depth=4, batch=4, seq=1024)),
                 ("seamless-m4t-medium", dict(depth=None, batch=8, seq=1024))]
+# phase 12, on qwen2-1.5b at its published width and depth: (b) a (2, 2)
+# mesh of the one card; (c) the 28 layers in 2 and in 4 stages, 8
+# microbatches of 2 x 2,048 positions; (d) the reduction over 1, 2 and 4
+# positions; (e) a 1,048,576-tweet batch
+REPEATS = 3         # phase 12's timed runs of each forward
+MESH = dict(grid=(2, 2), pods=(1, 2, 4), selectivity_rows=1 << 20,
+            pipeline=dict(stages=(2, 4), micro=8, batch=2, seq=2048))
 
 
 def main() -> int:
@@ -3529,6 +3919,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     tr = training_phase(dev)
 
+    torch.cuda.empty_cache()
+    pipe = mesh_phase(dev, qwen, MESH)
+
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
     timed = [
@@ -3576,6 +3969,10 @@ def main() -> int:
         # train run, forward and remat recompute)
         ("flash_attention", tr, f"phase 11, {TRAIN_ARCH} training "
          f"microbatch", "B={} H={} KH={} S={} D={}", case_flash_attention),
+        # phase 12: a pipeline stage's launch (qwen2-1.5b, the microbatch
+        # of 2 x 2,048 positions); launches of the first stage count's run
+        ("flash_attention", pipe, "phase 12, qwen2-1.5b pipeline stage",
+         "B={} H={} KH={} S={} D={}", case_flash_attention),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
@@ -3635,9 +4032,10 @@ def main() -> int:
     assert all(e["within_tolerance"] and e["launches"] > 0
                for e in measured), measured
     # the second rows: join_compact at the compact phase's real grid,
-    # flash_attention at the enriched tick's scorer batch, flash_decode at a
-    # long cache, predicate_filter at a full scan of the ring
-    *measured, train_row = measured
+    # flash_attention at the enriched tick's scorer batch, the training
+    # microbatch and a pipeline stage, flash_decode at a long cache,
+    # predicate_filter at a full scan of the ring
+    *measured, train_row, pipe_row = measured
     n_family = len(FAMILY_CASES)
     *entries, real_grid, scorer, long_cache, full_scan, sp_slice = \
         measured[:-n_family]
@@ -3649,6 +4047,7 @@ def main() -> int:
     seconds += [(e, e["name"], key) for e, key in
                 zip(measured[-n_family:], FAMILY_CASES)]
     seconds.append((train_row, "flash_attention", "train"))
+    seconds.append((pipe_row, "flash_attention", "pipeline"))
     for entry, second, key in seconds:
         first = next(e for e in entries if e["name"] == second)
         first[key] = {k: v for k, v in entry.items()
@@ -3667,6 +4066,9 @@ def main() -> int:
         if e["name"] == "flash_attention":
             e["train_launches_per_step"] = \
                 tr["launches_per_step"]["flash_attention"]
+            # phase 12's pipelined forwards, by stage count
+            e["pipeline_launches"] = {str(s): r["launches"]
+                                      for s, r in pipe["runs"].items()}
     assert min(sharded.values()) > 0, sharded
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)

@@ -1,5 +1,5 @@
-"""Checkpoint manager: atomic, async, keep-N, restore onto a device (the
-reference's ``ckpt/manager.py`` on torch tensors).
+"""Checkpoint manager: atomic, async, keep-N, restore onto a device or a
+mesh (the reference's ``ckpt/manager.py`` on torch tensors).
 
 Layout: ``<dir>/step_<N>/`` holds one ``.npy`` a leaf of the tree and a
 ``manifest.json``, the reference's layout. A leaf's file is named by its
@@ -18,8 +18,11 @@ What differs from the reference:
   stored as its int16 bits with ``"bfloat16"`` in the manifest, and
   restored bit for bit.
 - ``restore(step, like, device)`` places the tree on ``device`` (or each
-  leaf on its ``like`` leaf's device) in place of the reference's
-  shardings; placement on a mesh waits for ROADMAP item 18.
+  leaf on its ``like`` leaf's device). ``restore(step, like,
+  shardings=tree)`` is the reference's elastic restore onto another mesh:
+  each leaf is cut into its ``partition.NamedSharding``'s blocks on their
+  positions' devices (``partition.device_put``), a ``ShardedTensor`` whose
+  ``gather()`` gives the saved leaf back bit for bit.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tr
+from repro_torch.distributed.partition import device_put
 
 MANIFEST = "manifest.json"
 
@@ -141,22 +145,35 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None) -> Any:
+    def restore(self, step: int, like: Any, device=None,
+                shardings: Any = None) -> Any:
         """A tree structured like ``like`` from step ``step``: each leaf's
         shape checked against ``like``'s, cast to its dtype and placed on
-        ``device`` (or on the ``like`` leaf's device)."""
+        ``device`` (or on the ``like`` leaf's device); with ``shardings``
+        (a ``NamedSharding`` a leaf), cut into blocks on the mesh."""
+        if shardings is not None and device is not None:
+            raise ValueError("restore takes a device or shardings, not both")
         self.wait()
         path = self._final_path(step)
         with open(os.path.join(path, MANIFEST)) as f:
             dtypes = {e["name"]: e["dtype"] for e in json.load(f)["leaves"]}
+        names, refs = leaf_names(like), tr.leaves(like)
+        places = ([None] * len(refs) if shardings is None
+                  else tr.leaves(shardings))
+        if len(places) != len(refs):
+            raise ValueError("shardings and like differ in their leaves")
         out = []
-        for name, ref in zip(leaf_names(like), tr.leaves(like)):
+        for name, ref, place in zip(names, refs, places):
             t = torch.from_numpy(np.load(os.path.join(path, name + ".npy")))
             if dtypes[name] == "bfloat16":
                 t = t.view(torch.bfloat16)
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{tuple(t.shape)} vs {tuple(ref.shape)}")
-            out.append(t.to(device=device if device is not None
-                            else ref.device, dtype=ref.dtype))
+            t = t.to(dtype=ref.dtype)
+            if place is not None:       # blocks on the mesh, leaf by leaf
+                t = device_put(t, place)
+            else:
+                t = t.to(device if device is not None else ref.device)
+            out.append(t)
         return tr.unflatten(like, out)

@@ -17,6 +17,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.device import DeviceLike, resolve_device
+
 # Comparison ops.
 EQ, NE, LT, LE, GT, GE = range(6)
 _OP_NAMES = {"==": EQ, "!=": NE, "<": LT, "<=": LE, ">": GT, ">=": GE}
@@ -108,3 +110,23 @@ def evaluate_conditions(fields: torch.Tensor,
     vals = fields[:, field_idx]                                      # (N, C, P)
     ok = apply_op(vals, op[None], value[None])                       # (N, C, P)
     return ok.all(dim=-1)                                            # (N, C)
+
+
+def evaluate_single(fields: torch.Tensor,
+                    preds: Sequence[Predicate]) -> torch.Tensor:
+    """(N, F) x conjunction -> (N,) bool. Convenience for one channel."""
+    conds = compile_conditions([list(preds)])
+    return evaluate_conditions(fields, conds)[:, 0]
+
+
+def selectivity(fields, preds: Sequence[Predicate],
+                device: DeviceLike = "cuda") -> float:
+    """The share of records matching the conjunction (0.0 for no records):
+    a tensor is evaluated where it lies, numpy records on ``device``."""
+    if not isinstance(fields, torch.Tensor):
+        fields = torch.tensor(np.asarray(fields),
+                              device=resolve_device(device))
+    n = int(fields.shape[0])
+    if n == 0:
+        return 0.0
+    return int(evaluate_single(fields, preds).sum()) / n

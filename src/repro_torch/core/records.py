@@ -10,7 +10,7 @@ is the LSM-style time filter.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -142,3 +142,29 @@ def gather_rows(ds: ActiveDataset, row_ids: torch.Tensor) -> RecordBatch:
     """Gather records by stable row id (caller guarantees ids are live)."""
     slots = (row_ids % ds.capacity).long()
     return RecordBatch(ds.fields[slots], ds.location[slots])
+
+
+# ---------------------------------------------------------------------------
+# Host-side dictionary encoding helpers (control plane)
+# ---------------------------------------------------------------------------
+
+
+class Dictionary:
+    """String -> dense int code, grown on first sight (host side only)."""
+
+    def __init__(self) -> None:
+        self._codes: Dict[str, int] = {}
+
+    def encode(self, value: str) -> int:
+        if value not in self._codes:
+            self._codes[value] = len(self._codes)
+        return self._codes[value]
+
+    def decode(self, code: int) -> str:
+        for k, v in self._codes.items():
+            if v == code:
+                return k
+        raise KeyError(code)
+
+    def __len__(self) -> int:
+        return len(self._codes)

@@ -85,6 +85,16 @@ def predicate_filter_rows(fields: torch.Tensor,
     return _launch_rows(fields, lo, hi, neq)
 
 
+def predicate_filter_ref(fields: torch.Tensor,
+                         conds: CompiledConditions) -> torch.Tensor:
+    """The oracle: (N, F) x conditionsList -> (N, C) bool through the plain
+    version with the wrapper's canonicalization, on ``fields``' device. It
+    never launches the kernel, a CUDA tensor included: tests hold the
+    kernel against it."""
+    lo, hi, neq = _device_tables(conds, int(fields.shape[1]), fields.device)
+    return ref.predicate_filter(fields, lo, hi, neq)
+
+
 def _check(name: str, fields, tables, shapes) -> None:
     """What the kernel takes: contiguous int32 records and tables on one
     device, the records starting on a 16-byte boundary (the kernel reads

@@ -115,8 +115,3 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small).validate()
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1, {item})")

@@ -185,13 +185,14 @@ def prefill(params, cfg: ModelConfig, src_embeds: torch.Tensor,
         ck, cv = _cross_kv(p["cross_attn"], enc_out, cfg)
         x = x + _cross(p, x, cfg, cos, sin, ck, cv)
         x = x + _mlp(p, x, cfg)
-        cache = {"ck": ck, "cv": cv}
+        cache = {}
         for name in ("k", "v"):
             t = self_kv[name]
             c = torch.zeros(t.shape[:2] + (max_len, t.shape[3]),
                             dtype=t.dtype, device=t.device)
             c[:, :, :s] = t
             cache[name] = c
+        cache.update(ck=ck, cv=cv)      # cache_shapes' order
         caches.append(cache)
     logits = _logits(params, cfg, x[:, -1:])[:, 0, :cfg.vocab_size]
     return logits, caches, s

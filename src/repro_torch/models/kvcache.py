@@ -8,10 +8,11 @@ import torch
 
 class TensorSpec(NamedTuple):
     """A tensor's shape and dtype, without the tensor (the reference's
-    ``jax.ShapeDtypeStruct``)."""
+    ``jax.ShapeDtypeStruct``); a leaf of ``repro_torch.tree``."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    tree_leaf = True
 
 
 def create_kv_cache(batch: int, kv_heads: int, max_len: int, head_dim: int,

@@ -1,9 +1,10 @@
 """Shared layers: RMSNorm, RoPE, the SwiGLU MLP, the init helper and
 ``remat``.
 
-The reference's sharding hook ``shard()`` is a no-op outside a mesh; the port
-has no mesh yet (ROADMAP items 15 and 18), so it is left out. Weights keep
-the reference's (in, out) layout, so ``x @ W`` reads the same.
+The reference's sharding hook ``shard()`` is left out: eager PyTorch in one
+process has no compiler to constrain, so the port's
+``distributed.partition.shard`` only checks a spec name. Weights keep the
+reference's (in, out) layout, so ``x @ W`` reads the same.
 """
 from __future__ import annotations
 

@@ -6,11 +6,15 @@
   decode(params, caches, pos, batch)   -- one token -> (logits, caches)
   param_count(), active_param_count()
   input_specs(shape), cache_shapes(shape), supports(shape)
+  layer_cache_shapes(shape)            -- cache_shapes a layer, as held
+  param_pspecs(), cache_pspecs(shape)  -- partition-spec trees
 
 Decoder-only families go through ``lm``, the encoder-decoder through
 ``encdec``; the ``embed`` frontend (pixtral, the enc-dec encoder) takes
-precomputed embeddings in ``batch["embeds"]``. The partition specs (the
-mesh, ROADMAP item 18) raise ``NotImplementedError``.
+precomputed embeddings in ``batch["embeds"]``. The spec trees are the
+port's per-layer trees (``distributed/param_specs.py``): one spec a leaf of
+``abstract_params()``, and one a leaf of ``layer_cache_shapes``: the
+per-layer caches that ``lm.init_caches`` and ``encdec.prefill`` hold.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import param_specs as psp
 from repro_torch.models import encdec, lm
-from repro_torch.models.config import ModelConfig, not_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import TensorSpec
 
 
@@ -81,7 +86,11 @@ class ModelApi:
         return total
 
     def param_pspecs(self):
-        raise not_ported("partition specs", "item 18")
+        """A spec a leaf of ``abstract_params()``, in its order; a layer's
+        leaf takes the reference's stacked spec without the scan entry."""
+        specs = (psp.encdec_param_specs(self.cfg) if self.cfg.is_encdec
+                 else psp.lm_param_specs(self.cfg))
+        return _ordered_like(specs, self.abstract_params())
 
     # -- steps --------------------------------------------------------------
 
@@ -152,6 +161,33 @@ class ModelApi:
                                        cfg.max_target_len, sh.seq_len)
         return lm.cache_shapes(cfg, sh.global_batch, sh.seq_len)
 
+    def layer_cache_shapes(self, shape_name: str):
+        """The serving state the port holds: a list with one tree a layer
+        (decoder layer of the enc-dec), each leaf the stacked leaf of
+        ``cache_shapes`` without its leading depth entry."""
+        stacked = self.cache_shapes(shape_name)
+        return [tree.tree_map(
+            lambda s: TensorSpec(tuple(s.shape[1:]), s.dtype), stacked)
+            for _ in range(self.cfg.superlayer_repeat)]
+
+    def cache_pspecs(self, shape_name: str):
+        """A spec a leaf of ``layer_cache_shapes``: the reference's spec of
+        the stacked leaf, without its leading entry."""
+        return psp.cache_specs(self.layer_cache_shapes(shape_name))
+
     def supports(self, shape_name: str) -> bool:
         sh = SHAPES[shape_name]
         return sh.name != "long_500k" or self.cfg.sub_quadratic
+
+
+def _ordered_like(specs, like):
+    """``specs`` with its dicts in ``like``'s key order (``tree`` zips
+    leaves in order); raises where their keys differ."""
+    if isinstance(like, dict):
+        if set(specs) != set(like):
+            raise ValueError(f"spec keys {sorted(specs)} differ from "
+                             f"{sorted(like)}")
+        return {k: _ordered_like(specs[k], v) for k, v in like.items()}
+    if isinstance(like, list):
+        return [_ordered_like(s, v) for s, v in zip(specs, like, strict=True)]
+    return specs

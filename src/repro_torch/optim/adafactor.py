@@ -31,6 +31,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed.partition import P
 
 
 class AdafactorState(NamedTuple):
@@ -100,6 +101,32 @@ class Adafactor:
                     dst.copy_(new[k])
                 vc[i].copy_(col)
         return params, state
+
+    def state_pspecs(self, param_pspecs) -> AdafactorState:
+        """The state's specs, leaf for leaf of ``init``'s tree: the count
+        replicated; ``m`` as its parameter (``P(None)`` for the (1,)
+        placeholder when ``b1 == 0``); a factor of a leaf of two or more
+        dimensions its parameter's spec without the last (row) or the
+        second-to-last (column) entry; a 1-d leaf outside ``layers`` keeps
+        its full ``v_row`` as the parameter and a replicated placeholder
+        column. A 1-d leaf of ``layers`` is (L, D) in the reference, whose
+        row factor (L,) is specced ``P(None)`` and column factor (D,)
+        ``P(None)``: here its 0-d ``v_row`` takes ``P()`` (the scan entry
+        dropped) and its copy of the shared column ``P(None)``."""
+        flat = tree.leaves(param_pspecs)
+        m, vr, vc = [None] * len(flat), [None] * len(flat), [None] * len(flat)
+        for pos, stacked in tree.stacks(param_pspecs):
+            for i in pos:
+                s = tuple(flat[i])
+                m[i] = flat[i] if self.b1 > 0 else P(None)
+                if len(s) >= 2:
+                    vr[i], vc[i] = P(*s[:-1]), P(*(s[:-2] + s[-1:]))
+                elif stacked:
+                    vr[i], vc[i] = P(), P(None)
+                else:
+                    vr[i], vc[i] = flat[i], P(None)
+        return AdafactorState(P(), *(tree.unflatten(param_pspecs, x)
+                                     for x in (m, vr, vc)))
 
     def _update(self, leaves, lr, beta2):
         """The reference's update of one stacked leaf, given as its layers

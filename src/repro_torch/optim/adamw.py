@@ -19,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed.partition import P
 
 
 class AdamWState(NamedTuple):
@@ -68,3 +69,8 @@ class AdamW:
             m.copy_(m32)
             v.copy_(v32)
         return params, state
+
+    def state_pspecs(self, param_pspecs) -> AdamWState:
+        """The state's specs: the count replicated, each moment as its
+        parameter."""
+        return AdamWState(P(), param_pspecs, param_pspecs)

@@ -2,11 +2,12 @@
 checkpoint trees.
 
 A tree is a dict, a list, a tuple or a NamedTuple of trees, and every other
-node is a leaf. Leaves come in the order of the tree (a dict's insertion
-order, not the reference's sorted keys), and each leaf's path is the dict
-keys, list or tuple indices and NamedTuple field names that lead to it. This
-stands in for ``jax.tree`` in the port's optimizers, train step and
-checkpoint manager.
+node is a leaf, as is a tuple whose class sets ``tree_leaf`` (a partition
+spec, ``distributed.partition.PartitionSpec``). Leaves come in the order of
+the tree (a dict's insertion order, not the reference's sorted keys), and
+each leaf's path is the dict keys, list or tuple indices and NamedTuple
+field names that lead to it. This stands in for ``jax.tree`` in the port's
+optimizers, train step, checkpoint manager and partition specs.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ def _is_namedtuple(node) -> bool:
 
 def _children(node):
     """(key, child) pairs of an inner node, or None for a leaf."""
+    if getattr(node, "tree_leaf", False):
+        return None
     if isinstance(node, dict):
         return list(node.items())
     if _is_namedtuple(node):

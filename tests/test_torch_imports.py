@@ -59,7 +59,10 @@ def test_engine_import_leaves_jax_unloaded():
             "repro_torch.distributed.partition, repro_torch.launch.train, "
             "repro_torch.launch.steps, repro_torch.optim, "
             "repro_torch.ckpt.manager, repro_torch.runtime.failure, "
-            "repro_torch.data.synthetic, repro_torch.tree; "
+            "repro_torch.data.synthetic, repro_torch.tree, "
+            "repro_torch.launch.mesh, repro_torch.distributed.compression, "
+            "repro_torch.distributed.pipeline, "
+            "repro_torch.distributed.param_specs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

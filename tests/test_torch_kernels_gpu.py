@@ -777,3 +777,80 @@ def test_train_step_on_the_card_reaches_every_leaf(cuda_device):
     _, _, metrics = build_train_step(api, opt, accum=2)(params, state, batch)
     assert fa_ops.LAUNCHES - before == 2 * 2 * cfg.superlayer_repeat
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_compressed_psum_tree_on_the_card_matches_cpu(rng, cuda_device, n):
+    """int8 error-feedback compression over a ("pod",) axis of n positions
+    of the card against the same reduction on the CPU: outputs (float32
+    and bf16 leaves) and residuals bit for bit."""
+    from repro_torch.distributed.compression import compressed_psum_tree
+    from repro_torch.launch.mesh import make_mesh
+    tree = {"w": rng.normal(size=(300, 7)) * 1e-3,
+            "b": [rng.normal(size=(129,)) * 5.0, np.zeros(16)],
+            "h": rng.normal(size=(4, 33))}
+    host = {"w": torch.tensor(tree["w"], dtype=torch.float32),
+            "b": [torch.tensor(x, dtype=torch.float32) for x in tree["b"]],
+            "h": torch.tensor(tree["h"], dtype=torch.bfloat16)}
+    res = {"w": torch.tensor(rng.normal(size=(300, 7)) * 1e-5,
+                             dtype=torch.float32),
+           "b": [torch.zeros(129), torch.zeros(16)], "h": torch.zeros(4, 33)}
+    want_out, want_r = compressed_psum_tree(
+        host, res, make_mesh((n,), ("pod",), "cpu"), "pod")
+    on_card = lambda t: {"w": t["w"].to(cuda_device),  # noqa: E731
+                         "b": [x.to(cuda_device) for x in t["b"]],
+                         "h": t["h"].to(cuda_device)}
+    got_out, got_r = compressed_psum_tree(
+        on_card(host), on_card(res),
+        make_mesh((n,), ("pod",), cuda_device), "pod")
+    for key in ("w", "h"):
+        assert got_out[key].is_cuda and got_out[key].dtype == host[key].dtype
+        assert torch.equal(got_out[key].cpu(), want_out[key])
+        assert torch.equal(got_r[key].cpu(), want_r[key])
+    for i in range(2):
+        assert torch.equal(got_out["b"][i].cpu(), want_out["b"][i])
+        assert torch.equal(got_r["b"][i].cpu(), want_r["b"][i])
+
+
+def test_two_stage_pipeline_with_flash_attention(cuda_device):
+    """A small qwen2-shaped model's 4 layers in two pipeline stages on the
+    card (bf16, head dim 64), 4 microbatches: bit-equal to the layers
+    applied to each microbatch in turn, one flash_attention launch a layer
+    and microbatch."""
+    import dataclasses
+    from repro_torch import configs, tree
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rope_frequencies
+    from repro_torch.models.model import ModelApi
+    cfg = dataclasses.replace(
+        configs.get_reduced("qwen2-1.5b"), d_model=256, n_heads=4,
+        n_kv_heads=2, head_dim=64, d_ff=512, superlayer_repeat=4, n_layers=4,
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    layers = ModelApi(cfg).init(gen)["layers"]
+    xs = torch.randn((4, 2, 128, cfg.d_model), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    cos, sin = rope_frequencies(64, 128, cfg.rope_theta, cuda_device)
+
+    def apply(ps, x):
+        for p in ps:
+            x, _ = blocks.superlayer_train(p, None, x, cfg, cos, sin)
+        return x
+
+    def stage_fn(sp, x):
+        return apply([tree.tree_map(lambda a, j=j: a[j], sp)
+                      for j in range(2)], x)
+
+    stacked = tree.tree_map(
+        lambda *ls: torch.stack(ls).unflatten(0, (2, 2)), *layers)
+    run = pipeline_forward(make_mesh((2,), ("pod",), cuda_device), "pod",
+                           stage_fn, 4)
+    with torch.no_grad():
+        want = torch.stack([apply(layers, xs[i]) for i in range(4)])
+        before = fa_ops.LAUNCHES
+        got = run(stacked, xs)
+    assert fa_ops.LAUNCHES - before == 4 * 4
+    assert got.is_cuda and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

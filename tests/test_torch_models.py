@@ -21,6 +21,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models.model import ModelApi as JApi  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.core.interop import params_from_numpy  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch.steps import (build_decode_step,  # noqa: E402
@@ -226,8 +227,9 @@ def test_not_ported_families_raise():
     """Every family is ported, training included: each arch id builds its
     parameters (a reduced config, on the CPU) and its ModelApi, and
     ``loss`` gives a finite float32 loss on seeded inputs (its parity with
-    the reference is test_torch_train_loss.py's); only the partition specs
-    raise, naming ROADMAP item 18."""
+    the reference is test_torch_train_loss.py's); nothing raises any more,
+    the partition specs included: one spec a parameter, no longer than its
+    rank (test_torch_param_specs.py holds them to the reference)."""
     rng = np.random.default_rng(0)
     for arch in tconfigs.ARCH_IDS:
         api = TApi(tconfigs.get_reduced(arch))
@@ -248,5 +250,7 @@ def test_not_ported_families_raise():
         np.testing.assert_allclose(
             float(total), float(metrics["loss"]) + 0.01 * float(metrics["aux"]),
             rtol=1e-6)
-        with pytest.raises(NotImplementedError, match="item 18"):
-            api.param_pspecs()
+        specs = tree.leaves(api.param_pspecs())
+        leaves = tree.leaves(params)
+        assert len(specs) == len(leaves)
+        assert all(len(s) <= p.dim() for s, p in zip(specs, leaves))
