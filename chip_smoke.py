@@ -143,6 +143,25 @@ exits non-zero, printing no result, without them. Phases:
    of the card: the embedding and layer 0 equal to the port's CPU result,
    every leaf's error-feedback identity; (e) ``selectivity`` of the five
    substrate conditions over 1M tweets on the card equal to the CPU's.
+13. Dry run: (a) every (arch x shape x mesh) cell, 10 x 4 x 2, through
+   ``launch/dryrun.py run_cell`` on the ``meta`` device (FLOPs by
+   ``FlopCounterMode``, argument bytes per device under the sanitized
+   specs; the records under ``build/dryrun/``), in this process but for
+   xlstm-125m's train_4k and prefill_32k, whose sLSTM loop over every
+   token takes the host minutes: those two run in worker processes started
+   with phase 11 (the phases before it are bound by the host). One ``[dryrun]`` line a cell, skips exactly where
+   ``ModelApi.supports`` is false, and the phase's wall time. (b) The dry run's probes on the card,
+   qwen2-1.5b's layer at its published width (bf16, seeded weights) at the
+   shapes one data shard of the (16, 16) mesh holds: the train probe
+   (grad through one superlayer under remat) at B = 1, S = 4,096 and the
+   decode probe at B = 8 over a 32,768-entry cache with 32,767 live. Each
+   prints its time by CUDA events, its count on ``meta`` (the reference's
+   count, masked causal work included) and that count over the time as a
+   share of the bf16 tensor cores' 989 TFLOP/s, its peak memory beside its
+   argument bytes and its launches (exactly 2 ``flash_attention`` a train
+   probe, the forward and its remat recompute, and 1 ``flash_decode`` a
+   decode probe); the same probes with the plain attention bound in hold
+   its gradients (phase 11's limits) and outputs (phase 6's).
 
 Phase 1 also holds the two attention kernels against their plain versions
 on their edge cases, within a stated tolerance (3e-5 in float32, 2e-2 in
@@ -159,8 +178,9 @@ and ``predicate_filter`` over the whole 2M-row ring, and
 sequence-parallel decode, and phase 10's new shapes: ``flash_attention``
 at zamba2's prefill (head dim 80), seamless's encoder and its
 cross-attention (Sk != Sq), ``flash_attention`` at phase 11's training
-microbatch and at phase 12's pipeline stage (2 x 2,048 positions of
-qwen2-1.5b), ``flash_decode`` at zamba2's decode and at
+microbatch, at phase 12's pipeline stage (2 x 2,048 positions of
+qwen2-1.5b) and at phase 13's train probe (1 x 4,096),
+``flash_decode`` at zamba2's decode and at
 seamless's cross step (``flash_decode``'s
 cluster size is printed and checked at each shape), ``join_compact``,
 ``flash_attention`` and ``flash_decode`` beside the floor under their time (the empty kernel of
@@ -3647,6 +3667,250 @@ def mesh_phase(dev, cfg, shape: dict) -> dict:
     return pp
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run
+# ---------------------------------------------------------------------------
+
+
+def dryrun_cells(arch: str, shape: str, out_dir: str) -> list:
+    """Both meshes' cells of (arch, shape) through ``run_cell`` in this
+    process on ``meta`` (the second mesh reuses the first's counts where
+    its microbatch is the same), each record written under ``out_dir``; a
+    cell is skipped exactly where ``ModelApi.supports`` is false. Returns a
+    row a cell."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import ModelApi
+
+    supported = ModelApi(configs.get_config(arch)).supports(shape)
+    rows = []
+    for multi_pod in (False, True):
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, multi_pod)
+        wall = time.perf_counter() - t
+        with open(os.path.join(out_dir, f"{arch}__{shape}__{rec['mesh']}"
+                               f".json"), "w") as f:
+            json.dump(rec, f, indent=2)
+        assert (rec["status"] == "skipped") == (not supported), \
+            (arch, shape, rec["status"])
+        row = dict(arch=arch, shape=shape, mesh=rec["mesh"],
+                   status=rec["status"], wall_s=wall, pid=os.getpid())
+        if rec["status"] == "ok":
+            assert rec["totals"]["flops_global"] > 0, rec
+            row.update(flops_global=rec["totals"]["flops_global"],
+                       flops=rec["totals"]["flops"],
+                       argument_bytes=rec["full"]["memory"]["argument_bytes"],
+                       grad_accum=rec["grad_accum"])
+        rows.append(row)
+    return rows
+
+
+def start_dryrun_workers(out_dir: str):
+    """Phase 13 (a)'s slowest cells (``DRYRUN_EARLY``), each in a worker
+    process started now at the lowest CPU priority: (pool, {cell:
+    result})."""
+    import multiprocessing
+    os.makedirs(out_dir, exist_ok=True)
+    pool = multiprocessing.get_context("spawn").Pool(len(DRYRUN_EARLY),
+                                                     initializer=os.nice,
+                                                     initargs=(19,))
+    return pool, {cell: pool.apply_async(dryrun_cells, (*cell, out_dir))
+                  for cell in DRYRUN_EARLY}
+
+
+def dryrun_matrix(out_dir: str, early: dict) -> dict:
+    """(a) Every (arch x shape x mesh) cell: the cells of ``early`` from
+    their workers, every other one in this process."""
+    from repro_torch.launch import dryrun_all
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    rows = []
+    for arch in dryrun_all.ARCHS:
+        for shape in dryrun_all.SHAPES:
+            if (arch, shape) in early:
+                rows += early[(arch, shape)].get()
+            else:
+                rows += dryrun_cells(arch, shape, out_dir)
+    return dict(rows=rows, wall_s=time.perf_counter() - t0)
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double(), want.double()
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w))
+
+
+def probe_inputs(dev, cfg, kind: str, shape: dict, rng) -> tuple:
+    """The probe's layer (seeded, on ``dev``; shapes only on ``meta``) and
+    its other arguments, seeded from ``rng``."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rope_frequencies
+
+    meta = dev.type == "meta"
+    layer = blocks.superlayer_init(
+        cfg, None if meta else torch.Generator(dev).manual_seed(SEED), dev)
+
+    def normal(*sh):
+        if meta:
+            return torch.empty(sh, dtype=cfg.compute_dtype, device=dev)
+        return torch.tensor(rng.normal(size=sh).astype(np.float32),
+                            device=dev).to(cfg.compute_dtype)
+
+    hd, b = cfg.resolved_head_dim, shape["batch"]
+    if kind == "train":
+        cos, sin = rope_frequencies(hd, shape["seq"], cfg.rope_theta, dev)
+        return layer, (normal(b, shape["seq"], cfg.d_model), cos, sin)
+    cache = {"b0": {"k": normal(b, cfg.n_kv_heads, shape["cache"], hd),
+                    "v": normal(b, cfg.n_kv_heads, shape["cache"], hd)}}
+    pos = shape["live"] - 1
+    cos, sin = rope_frequencies(hd, shape["cache"], cfg.rope_theta, dev)
+    kv_len = torch.full((b,), shape["live"], dtype=torch.int32, device=dev)
+    return layer, (normal(b, cfg.d_model), cache, cos, sin, pos, kv_len)
+
+
+def run_probe(api, kind: str, layer, args):
+    """The train probe's gradients or the decode probe's (output, states);
+    the decode probe writes its cache in place."""
+    from repro_torch.launch import probes
+    if kind == "train":
+        return probes.train_body_fn(api)(layer, None, *args)
+    return probes.decode_body_fn(api)(layer, None, *args)
+
+
+def clone_args(kind: str, args):
+    """A decode probe's arguments with its cache copied (the probe writes
+    it); the train probe reads its arguments only."""
+    if kind == "train":
+        return args
+    x, cache, *rest = args
+    return (x, {b: {k: v.clone() for k, v in c.items()}
+                for b, c in cache.items()}, *rest)
+
+
+def probe_phase(dev, cfg, shapes: dict) -> dict:
+    """(b) The train and decode probes of ``cfg``'s layer on the card:
+    time, count on ``meta``, peak memory, launches, and the kernels against
+    the plain attention bound in (``plain_attention``)."""
+    from repro_torch import tree
+    from repro_torch.models.model import ModelApi
+    from torch.utils.flop_counter import FlopCounterMode
+
+    api = ModelApi(cfg)
+    rng = np.random.default_rng(SEED + 13)
+    out = {}
+    for kind in ("train", "decode"):
+        shape = shapes[kind]
+        with FlopCounterMode(display=False) as counter:
+            run_probe(api, kind, *probe_inputs(torch.device("meta"), cfg,
+                                               kind, shape, rng))
+        flops = int(counter.get_total_flops())
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        layer, args = probe_inputs(dev, cfg, kind, shape, rng)
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tree.leaves((layer, args))
+                        if isinstance(t, torch.Tensor))
+        sync(dev)
+        reset_launch_counts()
+        got = run_probe(api, kind, layer, clone_args(kind, args))
+        sync(dev)
+        launches = launch_counts()
+        peak = (torch.cuda.max_memory_allocated(dev) - base
+                if dev.type == "cuda" else 0)
+        if dev.type == "cuda":
+            want = dict.fromkeys(launches, 0)
+            want["flash_attention" if kind == "train" else
+                 "flash_decode"] = 2 if kind == "train" else 1
+            assert launches == want, (kind, launches, want)
+            ms = [cuda_ms(lambda: run_probe(api, kind, layer, args), 1,
+                          warmup=1 if i == 0 else 0)
+                  for i in range(shape["repeats"])]
+        else:
+            ms = [float("nan")]
+        with plain_attention():
+            plain = run_probe(api, kind, layer, clone_args(kind, args))
+        if kind == "train":
+            with plain_attention(float32=True):
+                floor_run = run_probe(api, kind, layer, clone_args(kind,
+                                                                   args))
+            rows = [(rel_l2(g, p), rel_l2(f, p)) for g, p, f in zip(
+                tree.leaves(got), tree.leaves(plain), tree.leaves(floor_run))]
+            bad = [r for r in rows if not r[0] <= max(DECODE_REL_L2,
+                                                      2 * r[1])]
+            assert not bad, bad
+            worst = max(r[0] for r in rows)
+            check = dict(leaves=len(rows), worst_rel_l2=worst,
+                         worst_floor=max(r[1] for r in rows))
+            del floor_run
+        else:
+            err, abs_err = logit_errors(got[0], plain[0])
+            assert err <= DECODE_REL_L2 and abs_err <= DECODE_MAX_ABS, \
+                (err, abs_err)
+            cache_err = max(rel_l2(g, p) for g, p in zip(
+                tree.leaves(got[1]), tree.leaves(plain[1])))
+            assert cache_err == 0.0, cache_err
+            check = dict(rel_l2=err, max_abs=abs_err, cache_rel_l2=cache_err)
+        del got, plain
+        best = min(ms)
+        out[kind] = dict(shape=shape, ms=ms, flops=flops,
+                         share=flops / (best / 1e3) / BF16_TENSOR_OPS_PER_S,
+                         peak_bytes=peak, arg_bytes=arg_bytes,
+                         launches={k: v for k, v in launches.items() if v},
+                         check=check, attn_shape=launch_shapes())
+        del layer, args
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(dev, cfg, shapes: dict, out_dir: str,
+                 early: dict) -> dict:
+    """Phase 13: (a) and (b), printed; returns (b) for the kernel lines."""
+    card = card_line()
+    t0 = time.perf_counter()
+    mat = dryrun_matrix(out_dir, early)
+    for r in mat["rows"]:
+        where = ("a worker process started with phase 11"
+                 if r["pid"] != os.getpid() else "this process")
+        head = (f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: "
+                if r["status"] == "ok" else
+                f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: skipped "
+                f"(ModelApi.supports is false); ")
+        body = ("" if r["status"] != "ok" else
+                f"ok, flops_global {r['flops_global']:.4e}, flops/dev "
+                f"{r['flops']:.4e} (even split), argument_bytes/dev "
+                f"{r['argument_bytes'] / 2**30:.4f} GiB, grad_accum "
+                f"{r['grad_accum']}; ")
+        print(f"{head}{body}{r['wall_s']:.2f} s on the host (meta, {where})")
+    slow = max(mat["rows"], key=lambda r: r["wall_s"])
+    print(f"[dryrun] (a) {len(mat['rows'])} cells, "
+          f"{sum(r['status'] == 'ok' for r in mat['rows'])} ok, in "
+          f"{mat['wall_s']:.1f} s of this phase, "
+          f"{sum(r['wall_s'] for r in mat['rows']):.1f} s of cells in all "
+          f"(slowest {slow['arch']} x {slow['shape']} x {slow['mesh']}, "
+          f"{slow['wall_s']:.1f} s); records under {out_dir}")
+    pr = probe_phase(dev, cfg, shapes)
+    for kind, r in pr.items():
+        what = ("train probe (grad through one superlayer, remat)"
+                if kind == "train" else "decode probe")
+        print(f"[dryrun] (b) {cfg.name} {what} on {card}, "
+              f"{json.dumps(r['shape'])}: "
+              f"{json.dumps([round(x, 3) for x in r['ms']])} ms (CUDA "
+              f"events); FlopCounterMode on meta {r['flops']:.4e} FLOPs (the "
+              f"reference's count, masked causal work included), "
+              f"{100 * r['share']:.2f}% of 989 TFLOP/s at the best time; "
+              f"peak memory {r['peak_bytes'] / 2**30:.3f} GiB, its "
+              f"arguments {r['arg_bytes'] / 2**30:.3f} GiB of it; launches "
+              f"{json.dumps(r['launches'])}; against the plain attention "
+              f"{json.dumps(r['check'])}")
+    print(f"[dryrun] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return pr
+
+
 MAIN = dict(dataset_capacity=1 << 21, index_capacity=1 << 20,
             max_window=1 << 16, max_candidates=1 << 14,
             max_deliver_pairs=1 << 14, max_notify=1 << 22,
@@ -3725,6 +3989,17 @@ TRAIN_OTHERS = [("pixtral-12b", dict(depth=4, batch=4, seq=1024)),
 REPEATS = 3         # phase 12's timed runs of each forward
 MESH = dict(grid=(2, 2), pods=(1, 2, 4), selectivity_rows=1 << 20,
             pipeline=dict(stages=(2, 4), micro=8, batch=2, seq=2048))
+# phase 13 (b): what one data shard of the (16, 16) mesh holds with the
+# model axis whole: train_4k's microbatch (256 rows / 16 microbatches) over
+# 16 data positions, and decode_32k's 128 rows over 16, the cache full but
+# for the token written
+PROBES = dict(train=dict(batch=1, seq=4096, repeats=3),
+              decode=dict(batch=8, cache=32768, live=32767, repeats=5))
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun")
+# phase 13 (a)'s cells whose count takes the host longest (minutes each:
+# xlstm's sLSTM loop runs every token's step on meta), each counted in a
+# worker process started with phase 11
+DRYRUN_EARLY = [("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k")]
 
 
 def main() -> int:
@@ -3916,11 +4191,21 @@ def main() -> int:
         print_family(fam[arch], card)
     print(f"[families] phase 10 in {time.perf_counter() - t:.1f} s")
 
+    # phase 13 (a)'s slowest cells start here, beside phases 11 and 12,
+    # whose time is the card's: started with phase 1, beside them phase 6's
+    # host-bound serve decode read 32 ms a token, against 20-26 ms without
+    # them (an H100 machine)
+    workers, early = start_dryrun_workers(DRYRUN_OUT)
     torch.cuda.empty_cache()
     tr = training_phase(dev)
 
     torch.cuda.empty_cache()
     pipe = mesh_phase(dev, qwen, MESH)
+
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(dev, qwen, PROBES, DRYRUN_OUT, early)
+    workers.close()
+    workers.join()
 
     # each entry is timed at the largest shape a path gave it and reports
     # that path's launches: (entry, path, where, shape format, case)
@@ -3973,6 +4258,11 @@ def main() -> int:
         # of 2 x 2,048 positions); launches of the first stage count's run
         ("flash_attention", pipe, "phase 12, qwen2-1.5b pipeline stage",
          "B={} H={} KH={} S={} D={}", case_flash_attention),
+        # phase 13: the train probe's attention (qwen2-1.5b, one data
+        # shard's microbatch of 1 x 4,096); the launches of one probe call
+        ("flash_attention", {"launches": dry["train"]["launches"]},
+         "phase 13, qwen2-1.5b train probe", "B={} H={} KH={} S={} D={}",
+         case_flash_attention, dry["train"]["attn_shape"]["flash_attention"]),
     ]
     replaces = {
         "predicate_filter": "src/repro/kernels/predicate_filter/kernel.py:45",
@@ -4035,7 +4325,7 @@ def main() -> int:
     # flash_attention at the enriched tick's scorer batch, the training
     # microbatch and a pipeline stage, flash_decode at a long cache,
     # predicate_filter at a full scan of the ring
-    *measured, train_row, pipe_row = measured
+    *measured, train_row, pipe_row, probe_row = measured
     n_family = len(FAMILY_CASES)
     *entries, real_grid, scorer, long_cache, full_scan, sp_slice = \
         measured[:-n_family]
@@ -4048,6 +4338,7 @@ def main() -> int:
                 zip(measured[-n_family:], FAMILY_CASES)]
     seconds.append((train_row, "flash_attention", "train"))
     seconds.append((pipe_row, "flash_attention", "pipeline"))
+    seconds.append((probe_row, "flash_attention", "dryrun_probe"))
     for entry, second, key in seconds:
         first = next(e for e in entries if e["name"] == second)
         first[key] = {k: v for k, v in entry.items()
@@ -4069,6 +4360,11 @@ def main() -> int:
             # phase 12's pipelined forwards, by stage count
             e["pipeline_launches"] = {str(s): r["launches"]
                                       for s, r in pipe["runs"].items()}
+        if e["name"] in ("flash_attention", "flash_decode"):
+            # phase 13's probe calls: one train probe, one decode probe
+            e["dryrun_probe_launches"] = {
+                kind: r["launches"].get(e["name"], 0)
+                for kind, r in dry.items()}
     assert min(sharded.values()) > 0, sharded
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)

@@ -2,7 +2,10 @@
 _sdpa`` calls it.
 
 ``flash_attention`` picks the version by the tensor's device: a CPU tensor
-runs the plain version in ``ref.py``, a CUDA tensor launches
+runs the plain version in ``ref.py``, and so does a ``meta`` tensor, the
+dry run's device and not a fallback (it computes the shape and lets
+``FlopCounterMode`` count the products; nothing is built, launched or
+counted); a CUDA tensor launches
 ``csrc/flash_attention.cu`` (or raises): in bf16 a Hopper kernel on the
 tensor cores fed by TMA, in float32 a CUDA-core kernel. k and v may have
 their own length Sk when the attention is not causal (the encoder-decoder's
@@ -35,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -54,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, Sq, D), k/v (B, KH, Sk, D) (Sk = Sq when causal) ->
     (B, H, Sq, D) in q's dtype."""
     scale = scale if scale is not None else q.shape[3] ** -0.5
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return _FlashAttention.apply(q, k, v, causal, float(scale))
 

@@ -2,7 +2,9 @@
 attn_decode`` calls ``decode_attention``.
 
 Both entries pick the version by the tensor's device: a CPU tensor runs the
-plain version in ``ref.py``, a CUDA tensor launches ``csrc/flash_decode.cu``
+plain version in ``ref.py``, and so does a ``meta`` tensor, the dry run's
+device and not a fallback (shapes and FLOP counts only; nothing is built,
+launched or counted); a CUDA tensor launches ``csrc/flash_decode.cu``
 (or raises). On the card each call is one clustered kernel that splits the
 cache over a cluster's blocks and merges the splits in distributed shared
 memory (QK^T on the tensor cores in bf16, on the CUDA cores in float32):
@@ -20,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.flash_decode import ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -47,7 +50,7 @@ def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """Same contract as ``ref.decode_attention_partial``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return ref.decode_attention_partial(q, k, v, kv_len, scale)
     return _launch(q, k, v, kv_len, float(scale), normalized=False)
 
@@ -57,7 +60,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Normalised decode attention, (B, H, D) in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if runs_plain(q):
         return ref.decode_attention(q, k, v, kv_len, scale)
     return _launch(q, k, v, kv_len, float(scale), normalized=True)
 

@@ -2,10 +2,11 @@
 ``core/plans.py join_param_stream`` under the "compact_pallas" backend.
 
 ``join_pairs`` picks the version by the tensor's device: a CPU tensor runs
-the plain version in ``ref.py``, a CUDA tensor launches
-``csrc/join_compact.cu`` (or raises). The kernel masks the ragged edges
-itself and reads ``valid`` as the caller's bool tensor, so nothing is padded
-or cast here. It has two paths in one source: 16-byte quads of 4 columns a
+the plain version in ``ref.py``, and so does a ``meta`` tensor, the dry
+run's device and not a fallback (shapes only; nothing is built, launched or
+counted); a CUDA tensor launches ``csrc/join_compact.cu`` (or raises). The
+kernel masks the ragged edges itself and reads ``valid`` as the caller's
+bool tensor, so nothing is padded or cast here. It has two paths in one source: 16-byte quads of 4 columns a
 thread where ``vector_ok`` holds, a pair a thread otherwise.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.join_compact import ref
 
 # launches of the CUDA kernel in this process (never the plain version),
@@ -32,7 +34,7 @@ def join_pairs(tgt: torch.Tensor, tgt_n: torch.Tensor, members: torch.Tensor,
                brokers: torch.Tensor, valid: torch.Tensor,
                payload: torch.Tensor, num_brokers: int, aggregated: bool):
     """Same contract as ``ref.join_pairs`` (bit-identical: all-integer)."""
-    if tgt.device.type == "cpu":
+    if runs_plain(tgt):
         return ref.join_pairs(tgt, tgt_n, members, brokers, valid, payload,
                               num_brokers, aggregated)
     return _launch(tgt, tgt_n, members, brokers, valid, payload, num_brokers,

@@ -1,11 +1,12 @@
 """Public wrapper for the predicate_filter kernel.
 
 Handles the cached conditionsList canonicalization and picks the version by
-the tensor's device: a CPU tensor runs the plain version in ``ref.py``, a
-CUDA tensor launches ``csrc/predicate_filter.cu`` (or raises). The kernel
-masks the ragged tail itself, so no padding happens here; it reads the
-records with 16-byte loads, so ``_check`` refuses a base off a 16-byte
-boundary.
+the tensor's device: a CPU tensor runs the plain version in ``ref.py``, and
+so does a ``meta`` tensor, the dry run's device and not a fallback (shapes
+only; nothing is built, launched or counted); a CUDA tensor launches
+``csrc/predicate_filter.cu`` (or raises). The kernel masks the ragged tail
+itself, so no padding happens here; it reads the records with 16-byte
+loads, so ``_check`` refuses a base off a 16-byte boundary.
 ``predicate_filter_rows`` is the stacked (C, N, F) -> (C, N) form of the
 fused discovery, with its own entry in the same source and its own launch
 count.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.predicates import CompiledConditions
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.predicate_filter import ref
 
 ALIGN = 16          # bytes: the kernel's loads of the records
@@ -69,7 +71,7 @@ def predicate_filter(fields: torch.Tensor,
 def predicate_filter_padded(fields: torch.Tensor, lo: torch.Tensor,
                             hi: torch.Tensor, neq: torch.Tensor) -> torch.Tensor:
     """Canonical-table form: (N, F) x (C, F) lo/hi/neq -> (N, C) bool."""
-    if fields.device.type == "cpu":
+    if runs_plain(fields):
         return ref.predicate_filter(fields, lo, hi, neq)
     return _launch(fields, lo, hi, neq)
 
@@ -80,7 +82,7 @@ def predicate_filter_rows(fields: torch.Tensor,
     evaluated on its own block only (the fused window / candidate-recheck
     shape, where each channel gathers a different row window)."""
     lo, hi, neq = _device_tables(conds, int(fields.shape[-1]), fields.device)
-    if fields.device.type == "cpu":
+    if runs_plain(fields):
         return ref.predicate_filter_rows(fields, lo, hi, neq)
     return _launch_rows(fields, lo, hi, neq)
 

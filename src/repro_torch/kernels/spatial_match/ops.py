@@ -1,10 +1,12 @@
 """Public wrapper for the spatial_match kernel.
 
 ``spatial_match`` picks the version by the tensor's device: a CPU tensor
-runs ``spatial_match_plain`` below, a CUDA tensor launches
-``csrc/spatial_match.cu`` (or raises). Both compute the TPU kernel's
-expansion form |t|^2 + |u|^2 - 2 t.u in the same fixed float32 order, so
-they agree bit for bit; the euclidean oracle is ``ref.spatial_match``.
+runs ``spatial_match_plain`` below, and so does a ``meta`` tensor, the dry
+run's device and not a fallback (shapes only; nothing is built, launched or
+counted); a CUDA tensor launches ``csrc/spatial_match.cu`` (or raises).
+Both compute the TPU kernel's expansion form |t|^2 + |u|^2 - 2 t.u in the
+same fixed float32 order, so they agree bit for bit; the euclidean oracle
+is ``ref.spatial_match``.
 Stacked (C, R, 2) x (C, U, 2) inputs with a (C,) radius (or one radius for
 all) take the kernel's batched entry, one launch for every channel, counted
 in ``STACKED_LAUNCHES``.
@@ -15,6 +17,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import runs_plain
 
 # Far sentinel for padded rows/users: coordinates so distant that dist^2
 # overflows float32 to +inf, which is never < radius^2.
@@ -38,7 +42,7 @@ def spatial_match(tweet_locs: torch.Tensor, user_locs: torch.Tensor,
                   radius) -> torch.Tensor:
     """(R, 2) x (U, 2) float32 -> (R, U) bool hit map, dist^2 < radius^2;
     stacked (C, R, 2) x (C, U, 2) with (C,) radii -> (C, R, U)."""
-    if tweet_locs.device.type == "cpu":
+    if runs_plain(tweet_locs):
         return spatial_match_plain(tweet_locs, user_locs, radius)
     if tweet_locs.dim() == 3:
         return _launch_stacked(tweet_locs, user_locs,

@@ -5,11 +5,13 @@ port. On a CUDA tensor ``_sdpa`` always launches the hand-written
 ``flash_attention`` kernel and ``attn_decode`` the ``flash_decode`` kernel,
 whatever ``cfg.attn_impl`` says: on the card the port has one implementation
 of each, so no configuration (not the default ``"ref"``, not the chunked
-branch at S >= 8192) puts a plain version on the path there. On a CPU tensor
-they follow the reference's branches exactly (``attn_impl == "flash"`` ->
-the wrapper, which runs the plain version on the CPU; the chunked
-online-softmax path at S >= 8192 unless ``"ref_full"``; else the plain
-version), so the CPU tests compare like with like. Under
+branch at S >= 8192) puts a plain version on the path there. On a CPU
+tensor, and on a ``meta`` tensor (the dry run's device: shapes and FLOP
+counts only, ``launch/dryrun.py``), they follow the reference's branches
+exactly (``attn_impl == "flash"`` -> the wrapper, which runs the plain
+version there; the chunked online-softmax path at S >= 8192 unless
+``"ref_full"``; else the plain version), so the CPU tests compare like
+with like and the dry run counts the reference's products. Under
 ``distributed.partition.use_rules`` with a model axis whose size divides
 the cache length, ``attn_decode`` runs the sequence-parallel decode
 (``distributed.collectives.sp_decode_attention``: the kernel's partial
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.distributed import collectives
 from repro_torch.distributed.partition import active_rules
+from repro_torch.kernels import runs_plain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -49,23 +52,22 @@ def attn_init(cfg: ModelConfig, generator: Optional[torch.Generator], device,
     return p
 
 
+def _project(p, x: torch.Tensor, cfg: ModelConfig, cdtype: torch.dtype,
+             name: str) -> torch.Tensor:
+    """x (B, S, D) -> the ``name`` ("q", "k" or "v") projection's heads,
+    (B, n, S, hd) and contiguous."""
+    b, s, _ = x.shape
+    t = x @ p[f"w{name}"].to(cdtype)
+    if cfg.qkv_bias:
+        t = t + p[f"b{name}"].to(cdtype)
+    n = cfg.n_heads if name == "q" else cfg.n_kv_heads
+    return t.reshape(b, s, n, cfg.resolved_head_dim).transpose(1, 2) \
+        .contiguous()
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, cdtype: torch.dtype):
     """x (B, S, D) -> q (B, H, S, hd), k / v (B, KH, S, hd), contiguous."""
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = x @ p["wq"].to(cdtype)
-    k = x @ p["wk"].to(cdtype)
-    v = x @ p["wv"].to(cdtype)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(cdtype)
-        k = k + p["bk"].to(cdtype)
-        v = v + p["bv"].to(cdtype)
-
-    def heads(t, n):
-        return t.reshape(b, s, n, hd).transpose(1, 2).contiguous()
-
-    return heads(q, cfg.n_heads), heads(k, cfg.n_kv_heads), \
-        heads(v, cfg.n_kv_heads)
+    return tuple(_project(p, x, cfg, cdtype, name) for name in "qkv")
 
 
 CHUNKED_ATTN_THRESHOLD = 8192   # S >= this uses the chunked path (CPU)
@@ -105,8 +107,9 @@ def _chunked_sdpa(q, k, v, causal: bool) -> torch.Tensor:
 
 
 def _sdpa(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
-    """The kernel on a CUDA tensor; the reference's branches on the CPU."""
-    if q.device.type != "cpu" or cfg.attn_impl == "flash":
+    """The kernel on a CUDA tensor; the reference's branches on the CPU
+    and on ``meta``."""
+    if not runs_plain(q) or cfg.attn_impl == "flash":
         return fa_ops.flash_attention(q, k, v, causal=causal)
     if cfg.attn_impl != "ref_full" and q.shape[2] >= CHUNKED_ATTN_THRESHOLD:
         return _chunked_sdpa(q, k, v, causal)
@@ -125,10 +128,13 @@ def attn_apply(p, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     """Full-sequence attention (training / prefill / encoder / cross)."""
     cdtype = cfg.compute_dtype
     x = x.to(cdtype)
-    q, k, v = _project_qkv(p, x, cfg, cdtype)
-    if kv_override is not None:
-        k, v = kv_override                       # cross-attention
+    if kv_override is not None:                  # cross-attention
+        # k and v are given: the reference projects x to them too and
+        # drops them (its training jaxpr and XLA's programs do not)
+        q = _project(p, x, cfg, cdtype, "q")
+        k, v = kv_override
     else:
+        q, k, v = _project_qkv(p, x, cfg, cdtype)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     return _merge_heads(_sdpa(q, k, v, cfg, causal), p, cdtype)
@@ -169,7 +175,7 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cos, sin,
             and cache["k"].shape[2] % rules.model_size == 0:
         out = collectives.sp_decode_attention(rules, q1, cache["k"],
                                               cache["v"], kv_len)
-    elif x.device.type != "cpu" or cfg.attn_impl == "flash":
+    elif not runs_plain(x) or cfg.attn_impl == "flash":
         out = fd_ops.decode_attention(q1, cache["k"], cache["v"], kv_len)
     else:
         out = fd_ref.decode_attention(q1, cache["k"], cache["v"], kv_len)

@@ -7,11 +7,12 @@ a scalar decay per head,
   o_t = q_t . S_t,   S_t = sum_{j<=t} exp(L_t - L_j) k_j v_j^T,
   L_t = cumsum(log a),  log a <= 0.
 
-Within a chunk the products are dense; across chunks a loop carries the
+Within a chunk the products are dense and batched over the chunks, as the
+reference's; across chunks a loop of elementwise steps carries the
 (Dk, Dv) state (the reference combines the chunk summaries with
 ``lax.associative_scan``: the same sum in another order). A last chunk
-shorter than ``chunk`` is taken as it is (the reference asserts T % chunk
-== 0).
+shorter than ``chunk`` is taken, padded with zero keys and values and no
+decay (the reference asserts T % chunk == 0).
 
 Every decay factor is formed as exp of a difference that is <= 0: the
 intra-chunk weights as exp(L_i - L_j) masked to j <= i before the exp, the
@@ -54,35 +55,48 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q/k (B, H, T, Dk), v (B, H, T, Dv), log_a (B, H, T) <= 0, float32.
 
-    Returns (o (B, H, T, Dv), final_state (B, H, Dk, Dv))."""
+    Returns (o (B, H, T, Dv), final_state (B, H, Dk, Dv)). The products are
+    the reference's four, each batched over every chunk: the intra-chunk
+    scores and outputs, the chunk summaries, and the outputs against the
+    state entering each chunk (the first chunk's the initial state, zeros
+    unless given), so the backward computes the same products too."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
-    state = initial_state
-    if state is None:
-        state = torch.zeros((b, h, dk, dv), dtype=v.dtype, device=v.device)
+    n = -(-t // chunk)
+    pad = n * chunk - t
+    if pad:         # a ragged last chunk: zero keys and values, no decay
+        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        log_a = F.pad(log_a, (0, pad))
+    qc = q.reshape(b, h, n, chunk, dk)
+    kc = k.reshape(b, h, n, chunk, dk)
+    vc = v.reshape(b, h, n, chunk, dv)
+    L = torch.cumsum(log_a.reshape(b, h, n, chunk), dim=-1)   # within-chunk
+    last = L[..., -1:]                                        # (B, H, N, 1)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=q.device).tril()
-    outs = []
-    for lo in range(0, t, chunk):
-        hi = min(t, lo + chunk)
-        qc, kc, vc = q[:, :, lo:hi], k[:, :, lo:hi], v[:, :, lo:hi]
-        L = torch.cumsum(log_a[:, :, lo:hi], dim=-1)          # (B, H, c)
-        c = hi - lo
-        # intra-chunk: A[i, j] = exp(L_i - L_j) (q_i . k_j), j <= i
-        diff = (L[..., :, None] - L[..., None, :]).masked_fill(
-            ~causal[:c, :c], float("-inf"))
-        att = torch.einsum("bhid,bhjd->bhij", qc, kc) * torch.exp(diff)
-        o = torch.einsum("bhij,bhjv->bhiv", att, vc)
-        # the state entering the chunk, decayed to each position
-        o = o + torch.einsum("bhid,bhdv->bhiv",
-                             qc * torch.exp(L)[..., None], state)
-        outs.append(o)
-        # S <- exp(L_last) S + sum_j exp(L_last - L_j) k_j v_j^T
-        last = L[..., -1:]
-        kw = kc * torch.exp(last - L)[..., None]
-        state = (state * torch.exp(last)[..., None]
-                 + torch.einsum("bhjd,bhjv->bhdv", kw, vc))
-    return torch.cat(outs, dim=2), state
+    # intra-chunk: A[i, j] = exp(L_i - L_j) (q_i . k_j), j <= i
+    diff = (L[..., :, None] - L[..., None, :]).masked_fill(~causal,
+                                                           float("-inf"))
+    att = torch.einsum("bhnid,bhnjd->bhnij", qc, kc) * torch.exp(diff)
+    o = torch.einsum("bhnij,bhnjv->bhniv", att, vc)
+    # chunk summaries: S_n = sum_j exp(L_last - L_j) k_j v_j^T
+    kw = kc * torch.exp(last - L)[..., None]
+    summary = torch.einsum("bhnjd,bhnjv->bhndv", kw, vc)
+    # the state after chunk n: exp(L_last) (the state after n - 1) + S_n
+    decay = torch.exp(last)[..., None]                        # (B, H, N, 1, 1)
+    init = initial_state
+    if init is None:
+        init = torch.zeros((b, h, dk, dv), dtype=v.dtype, device=v.device)
+    run, state = [], init
+    for i in range(n):
+        state = state * decay[:, :, i] + summary[:, :, i]
+        run.append(state)
+    run = torch.stack(run, dim=2)
+    entering = torch.cat([init[:, :, None], run[:, :, :-1]], dim=2)
+    # the state entering each chunk, decayed to each position
+    o = o + torch.einsum("bhnid,bhndv->bhniv", qc * torch.exp(L)[..., None],
+                         entering)
+    return o.reshape(b, h, n * chunk, dv)[:, :, :t], run[:, :, -1]
 
 
 def gla_step(q, k, v, log_a, state):
@@ -350,6 +364,23 @@ def _slstm_cell(gates, c, n, m):
     return c_new, n_new, m_new, h
 
 
+class _ZeroCarry(torch.autograd.Function):
+    """The sLSTM's zero initial state, (B, H, hd) float32 on x's device,
+    that autograd takes for a function of x (its gradient to x is None).
+    The reference's ``lax.scan`` differentiates its carry at every step, so
+    its backward forms step 0's recurrent gradient w.r.t. the zero state
+    (and drops it); through this node the port's backward forms the same
+    product, and a dry run counts the reference's products."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        return torch.zeros(shape, device=x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None
+
+
 def slstm_apply(p, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[Dict[str, torch.Tensor]] = None):
     cdtype = cfg.compute_dtype
@@ -360,7 +391,7 @@ def slstm_apply(p, x: torch.Tensor, cfg: ModelConfig,
     wx = wx.reshape(b, t, heads, 4, hd).permute(1, 0, 2, 4, 3)  # T,B,H,hd,4
     r = p["r"].float()                                          # H, hd, 4hd
     if state is None:
-        zeros = torch.zeros((b, heads, hd), device=x.device)
+        zeros = _ZeroCarry.apply(x, (b, heads, hd))
         c, n, m, h = zeros, zeros, zeros - 1e30, zeros
     else:
         c, n, m, h = state["c"], state["n"], state["m"], state["h"]
