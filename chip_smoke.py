@@ -1959,12 +1959,10 @@ def enriched_phase(dev, cfg: dict, lm_cfg, budget: int) -> dict:
 # phase 8: churn
 # ---------------------------------------------------------------------------
 
-# host functions of the incremental maintenance whose time phase 8 reports
-PATCH_FNS = ("_group_patches", "_apply_group_patches", "_flat_patches",
-             "_apply_flat_patches", "_spatial_patches",
-             "_apply_spatial_patches")
-CONTROL_FNS = ("subscribe_bulk", "remove_subscriptions", "subscribe_users",
-               "unsubscribe_users")
+# the program's spans (core/trace.py) whose host time phase 8 reports: the
+# stacked caches' patches and rebuilds, and the control-plane calls
+CHURN_SPANS = ("patch", "rebuild", "subscribe_bulk", "remove_subscriptions",
+               "subscribe_users", "unsubscribe_users")
 # the run's counters two schedules of the same seed must agree on
 CHURN_COUNTERS = ("adds", "removes", "user_adds", "user_removes", "results",
                   "delivered_pairs", "delivered_sids", "spilled", "dropped",
@@ -2024,9 +2022,11 @@ def churn_run(dev, cfg: dict, eng, specs, users, live, wl, ticks: int,
     conservation of every report, each tick's kernel launches (on the card;
     1 predicate_filter, 1 spatial_match_stacked, 1 join_compact on its quad
     path), and at ``check_tick`` the cohort's spatial hits against numpy.
-    Returns the report, per-tick walls, host seconds by function, the
+    Returns the report, per-tick walls, host seconds by span
+    (``CHURN_SPANS``, from the program's tracer), the
     dispatch-to-materialize latencies and the launch counts."""
     from repro_torch.core import records as R
+    from repro_torch.core import trace
     from repro_torch.core.churn import run_ticks
     from repro_torch.core.planner import RuntimePlanner
     from repro_torch.core.predicates import compile_conditions
@@ -2035,7 +2035,6 @@ def churn_run(dev, cfg: dict, eng, specs, users, live, wl, ticks: int,
     cuda = dev.type == "cuda"
     crime = specs[2]
     one = compile_conditions([list(crime.fixed_preds)])
-    host = host_timers(eng, PATCH_FNS + CONTROL_FNS)
     pends, latency = [], []
     dispatch = eng.dispatch
 
@@ -2089,19 +2088,26 @@ def churn_run(dev, cfg: dict, eng, specs, users, live, wl, ticks: int,
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     sync(dev)
-    rep = run_ticks(eng, wl, ticks, np.random.default_rng(SEED + 9),
-                    flags=None, deliver=True,
-                    ingest_per_tick=cfg["tick_rows"],
-                    make_batch=None if depth > 1 else make_batch,
-                    warmup=warmup, live_sids=live,
-                    churn_rounds=cfg["rounds"], use_channel_plans=True,
-                    on_tick=on_tick, pipeline_depth=depth)
+    trace.collect()
+    trace.enable()
+    try:
+        rep = run_ticks(eng, wl, ticks, np.random.default_rng(SEED + 9),
+                        flags=None, deliver=True,
+                        ingest_per_tick=cfg["tick_rows"],
+                        make_batch=None if depth > 1 else make_batch,
+                        warmup=warmup, live_sids=live,
+                        churn_rounds=cfg["rounds"], use_channel_plans=True,
+                        on_tick=on_tick, pipeline_depth=depth)
+    finally:
+        trace.disable()
+    host = dict.fromkeys(CHURN_SPANS, 0.0)
+    for r in trace.collect():
+        if r.name in host:
+            host[r.name] += 1e-9 * (r.end_ns - r.start_ns)
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
     latency += [p.latency_s for p in pends]
     eng.dispatch = dispatch
-    for name in PATCH_FNS + CONTROL_FNS:
-        del eng.__dict__[name]
     walls = np.diff(stamps[warmup:]) if depth == 1 else np.zeros(0)
     return dict(report=rep, walls_ms=1e3 * walls, host_s=host,
                 latency_ms=[1e3 * x for x in latency[warmup:]],
@@ -2125,7 +2131,7 @@ def churn_phase(dev, cfg: dict) -> dict:
     a = churn_run(dev, cfg, *a_parts, ticks=w + t, warmup=w, check_tick=0)
     out["a"] = a
     m = a["report"].maintenance
-    assert m.rebuilds == 0 and m.patches > 0 and m.traces == 0, m
+    assert m.rebuilds == 0 and m.patches > 0, m
     assert a["hits"], a["hits"]
     if cuda:
         n = w + t
@@ -2142,7 +2148,7 @@ def churn_phase(dev, cfg: dict) -> dict:
     assert [getattr(ra, k) for k in CHURN_COUNTERS] == \
         [getattr(rb, k) for k in CHURN_COUNTERS], (ra, rb)
     m = rb.maintenance
-    assert m.rebuilds == 0 and m.patches > 0 and m.traces == 0, m
+    assert m.rebuilds == 0 and m.patches > 0, m
     assert rb.pipeline_depth == 2, rb.pipeline_depth
     if cuda:
         n = w + t
@@ -4165,7 +4171,7 @@ def main() -> int:
         host = {k: round(1e3 * v / ticks_all, 3)
                 for k, v in r["host_s"].items()}
         print(f"[churn] ({key}) host ms per tick (all {ticks_all} ticks) by "
-              f"function on {card}: {json.dumps(host)}; counters "
+              f"span on {card}: {json.dumps(host)}; counters "
               f"{json.dumps({k: getattr(rep, k) for k in CHURN_COUNTERS})}"
               f", drain_calls {rep.drain_calls}; launches "
               f"{json.dumps(r['launches'])}")

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -76,7 +77,9 @@ def insert(state: BADIndexState, row_ids: torch.Tensor,
     dest = state.counts[:, None] + pos                        # (C, N)
     n_new = mask.sum(dim=1, dtype=torch.int32)
     keep = mask & (dest < cap)        # the reference's scatter drops the rest
-    ch, col = keep.nonzero(as_tuple=True)
+    with trace.span("read.index_insert"):
+        # nonzero reads its count back before it can size the output
+        ch, col = keep.nonzero(as_tuple=True)
     state.row_ids[ch, dest[ch, col].long()] = row_ids[col]
     state.overflowed |= state.counts + n_new > cap
     state.counts.copy_(torch.clamp(state.counts + n_new, max=cap))
@@ -114,7 +117,9 @@ def advance_watermarks(state: BADIndexState,
     """Vectorized ``advance_watermark`` for a batch of executed channels."""
     channels = channels.long()
     state.watermarks[channels] = state.counts[channels]
-    state.overflowed[channels] = False
+    # the value as a kernel argument: assigning ``False`` by index copies a
+    # host scalar to the device, which waits for the stream
+    state.overflowed.index_fill_(0, channels, False)
     return state
 
 

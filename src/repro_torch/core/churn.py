@@ -7,8 +7,7 @@ spatial-cohort churn) with fused ``execute_all(deliver=True)`` ticks, and
 reports the sustained control-plane throughput together with the engine's
 maintenance counters: at steady state the epoch/delta protocol shows
 *patches* advancing while *rebuilds* stay flat (every stacked cache is
-patched in place). *traces* is 0 by construction in this package (eager
-PyTorch has no traces to count).
+patched in place).
 
 The driver owns the live-sID bookkeeping (which subscriptions exist and can
 be removed), so the engine under test is exercised purely through its public

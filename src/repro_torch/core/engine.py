@@ -71,6 +71,7 @@ from repro_torch.core import enrich
 from repro_torch.core import plans
 from repro_torch.core import records as R
 from repro_torch.core import subscriptions as subs
+from repro_torch.core import trace
 from repro_torch.core.broker import (BrokerRegistry, DeliveryStats,
                                      FusedDelivery, RetryRing, RingCounters,
                                      deliver_all, empty_ring, fanout_sids,
@@ -91,11 +92,9 @@ class MaintenanceStats:
 
     ``rebuilds`` counts full stacked-cache rebuilds and ``patches`` in-place
     delta patch applications (one per patched channel), as in the
-    reference. The reference's ``traces`` counts jit traces; eager PyTorch
-    has none, so here it is 0 by construction. Steady-state churn shows
-    ``patches`` advancing while ``rebuilds`` stays flat."""
+    reference. Steady-state churn shows ``patches`` advancing while
+    ``rebuilds`` stays flat."""
 
-    traces: int = 0
     rebuilds: int = 0
     patches: int = 0
 
@@ -103,8 +102,7 @@ class MaintenanceStats:
         return dataclasses.replace(self)
 
     def since(self, prior: "MaintenanceStats") -> "MaintenanceStats":
-        return MaintenanceStats(self.traces - prior.traces,
-                                self.rebuilds - prior.rebuilds,
+        return MaintenanceStats(self.rebuilds - prior.rebuilds,
                                 self.patches - prior.patches)
 
 
@@ -693,27 +691,30 @@ class BADEngine:
         """Bulk control-plane load through the vectorized ``aggregate`` path:
         Algorithm-1 grouping semantics with no per-subscription Python work.
         Returns the assigned sIDs (``sids`` assigns explicit ids)."""
-        st = self.channels[channel]
-        params = np.asarray(params, dtype=np.int32).ravel()
-        brokers = np.asarray(brokers, dtype=np.int32).ravel()
-        # validate BEFORE mutating
-        if params.size and (int(params.min()) < 0
-                            or int(params.max()) >= st.user_params.domain):
-            raise ValueError(
-                f"params out of [0, {st.user_params.domain}) for {channel}")
-        nb = self.brokers.num_brokers
-        if brokers.size and (int(brokers.min()) < 0 or int(brokers.max()) >= nb):
-            raise ValueError(f"broker ids out of [0, {nb}) for {channel}")
-        if self.incremental:
-            sids = st.aggregator.add_bulk(params, brokers, sids)
-            st.user_params.add_bulk(params)
-            st.note_change()
-        else:
-            # the rebuild baseline: O(S) re-aggregation + invalidation
-            sids = st.aggregator.rebuild_bulk(params, brokers, sids)
-            st.user_params.add_bulk(params)
-            st.invalidate_targets()
-        return sids
+        with trace.span("subscribe_bulk"):
+            st = self.channels[channel]
+            params = np.asarray(params, dtype=np.int32).ravel()
+            brokers = np.asarray(brokers, dtype=np.int32).ravel()
+            # validate BEFORE mutating
+            if params.size and (int(params.min()) < 0
+                                or int(params.max()) >= st.user_params.domain):
+                raise ValueError(
+                    f"params out of [0, {st.user_params.domain}) for "
+                    f"{channel}")
+            nb = self.brokers.num_brokers
+            if brokers.size and (int(brokers.min()) < 0
+                                 or int(brokers.max()) >= nb):
+                raise ValueError(f"broker ids out of [0, {nb}) for {channel}")
+            if self.incremental:
+                sids = st.aggregator.add_bulk(params, brokers, sids)
+                st.user_params.add_bulk(params)
+                st.note_change()
+            else:
+                # the rebuild baseline: O(S) re-aggregation + invalidation
+                sids = st.aggregator.rebuild_bulk(params, brokers, sids)
+                st.user_params.add_bulk(params)
+                st.invalidate_targets()
+            return sids
 
     def unsubscribe(self, channel: str, param: int, broker: str, sid: int) -> bool:
         st = self.channels[channel]
@@ -727,46 +728,49 @@ class BADEngine:
         """Bulk removal by sID: UserParameters refcounts decremented for every
         subscription actually removed, one epoch bump. Unknown sIDs are
         ignored; returns the number removed."""
-        st = self.channels[channel]
-        params = st.aggregator.remove_bulk(np.asarray(sids))
-        if params.size:
-            st.user_params.remove_bulk(params)
-            st.note_change()
-        return int(params.size)
+        with trace.span("remove_subscriptions"):
+            st = self.channels[channel]
+            params = st.aggregator.remove_bulk(np.asarray(sids))
+            if params.size:
+                st.user_params.remove_bulk(params)
+                st.note_change()
+            return int(params.size)
 
     def subscribe_users(self, channel: str, user_ids: np.ndarray) -> int:
         """Attach users to a spatial channel's cohort. The first call
         converts the channel from the all-users semantics to an explicit
         cohort holding exactly the given ids. Returns the number newly
         attached."""
-        st = self.channels[channel]
-        if st.spec.join != "spatial":
-            raise ValueError(f"{channel} is not a spatial channel")
-        uids = np.asarray(user_ids, dtype=np.int32).ravel()
-        nu = self.user_locations.shape[0]
-        if uids.size and (int(uids.min()) < 0 or int(uids.max()) >= nu):
-            raise ValueError(f"user ids out of [0, {nu})")
-        created = st.cohort is None
-        if created:
-            st.cohort = UserCohort()
-        touched = st.cohort.add(uids)
-        if touched or created:
-            # creation alone changes semantics (all users -> explicit
-            # cohort) and remaps the spill target space: bump even when no
-            # id was new
-            st.note_user_change(touched)
-        return len(touched)
+        with trace.span("subscribe_users"):
+            st = self.channels[channel]
+            if st.spec.join != "spatial":
+                raise ValueError(f"{channel} is not a spatial channel")
+            uids = np.asarray(user_ids, dtype=np.int32).ravel()
+            nu = self.user_locations.shape[0]
+            if uids.size and (int(uids.min()) < 0 or int(uids.max()) >= nu):
+                raise ValueError(f"user ids out of [0, {nu})")
+            created = st.cohort is None
+            if created:
+                st.cohort = UserCohort()
+            touched = st.cohort.add(uids)
+            if touched or created:
+                # creation alone changes semantics (all users -> explicit
+                # cohort) and remaps the spill target space: bump even when
+                # no id was new
+                st.note_user_change(touched)
+            return len(touched)
 
     def unsubscribe_users(self, channel: str, user_ids: np.ndarray) -> int:
         """Detach users from a spatial channel's cohort (no-op for ids not
         in it). Returns the number detached."""
-        st = self.channels[channel]
-        if st.cohort is None:
-            return 0
-        touched = st.cohort.remove(np.asarray(user_ids, dtype=np.int32))
-        if touched:
-            st.note_user_change(touched)
-        return len(touched)
+        with trace.span("unsubscribe_users"):
+            st = self.channels[channel]
+            if st.cohort is None:
+                return 0
+            touched = st.cohort.remove(np.asarray(user_ids, dtype=np.int32))
+            if touched:
+                st.note_user_change(touched)
+            return len(touched)
 
     def set_user_locations(self, locations: np.ndarray,
                            brokers: Optional[np.ndarray] = None) -> None:
@@ -834,20 +838,21 @@ class BADEngine:
             raise ValueError("ingest reads timestamps from the batch's host "
                              "copy: build it with RecordBatch.from_numpy")
         n = batch.num_records
-        row_ids = np.arange(self.size_host, self.size_host + n,
-                            dtype=np.int32)
-        dev_rows = R.append(self.dataset, batch)
-        if self.use_pallas:
-            from repro_torch.kernels.predicate_filter import ops as pf_ops
-            matches = pf_ops.predicate_filter(batch.fields, self._conds)
-        else:
-            matches = evaluate_conditions(batch.fields, self._conds)
-        bidx.insert(self.index_state, dev_rows, matches)
-        self.size_host += n
-        if n:
-            self.now = max(self.now,
-                           int(batch.host_fields[:, R.TIMESTAMP].max()))
-        return row_ids
+        with trace.span("ingest"):
+            row_ids = np.arange(self.size_host, self.size_host + n,
+                                dtype=np.int32)
+            dev_rows = R.append(self.dataset, batch)
+            if self.use_pallas:
+                from repro_torch.kernels.predicate_filter import ops as pf_ops
+                matches = pf_ops.predicate_filter(batch.fields, self._conds)
+            else:
+                matches = evaluate_conditions(batch.fields, self._conds)
+            bidx.insert(self.index_state, dev_rows, matches)
+            self.size_host += n
+            if n:
+                self.now = max(self.now,
+                               int(batch.host_fields[:, R.TIMESTAMP].max()))
+            return row_ids
 
     # ------------------------------------------------------------------
     # data plane: channel execution
@@ -947,16 +952,9 @@ class BADEngine:
         return self._cohort_device(st)[2]
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """One host->device copy of an int32 buffer. On a CUDA engine the
-        buffer is staged in freshly allocated pinned memory and copied
-        without blocking the host; PyTorch's pinned allocator records the
-        copy on the stream and reuses the block only after it completed."""
-        host = np.ascontiguousarray(host, dtype=np.int32)
-        if self.device.type != "cuda" or not host.size:
-            return torch.from_numpy(host.copy()).to(self.device)
-        staged = torch.empty(host.shape, dtype=I32, pin_memory=True)
-        staged.numpy()[...] = host
-        return staged.to(self.device, non_blocking=True)
+        """One host->device copy of an int32 buffer, without blocking
+        (``records.to_device``)."""
+        return R.to_device(np.asarray(host, dtype=np.int32), self.device)
 
     def group_sids_array(self, channel: str, aggregated: bool) -> torch.Tensor:
         st = self.channels[channel]
@@ -1248,17 +1246,21 @@ class BADEngine:
             if cache.epochs == [st.epoch for st in chs]:
                 return cache
             if self.incremental:
-                if aggregated:
-                    patches = self._group_patches(cache, chs)
-                    if patches is not None:
-                        self._apply_group_patches(cache, chs, patches)
-                        return cache
-                else:
-                    patches = self._flat_patches(cache, chs)
-                    if patches is not None:
-                        self._apply_flat_patches(cache, chs, patches)
-                        return cache
-        cache = self._build_group_state(chs, aggregated)
+                with trace.span("patch", layout="group" if aggregated
+                                else "flat") as sp:
+                    if aggregated:
+                        patches = self._group_patches(cache, chs)
+                        if patches is not None:
+                            self._apply_group_patches(cache, chs, patches)
+                    else:
+                        patches = self._flat_patches(cache, chs)
+                        if patches is not None:
+                            self._apply_flat_patches(cache, chs, patches)
+                    sp.set(applied=patches is not None)
+                if patches is not None:
+                    return cache
+        with trace.span("rebuild", layout="group"):
+            cache = self._build_group_state(chs, aggregated)
         self._stacked_put(key, cache)
         return cache
 
@@ -1506,11 +1508,15 @@ class BADEngine:
             if cache.epochs == [st.user_epoch for st in chs]:
                 return cache
             if self.incremental:
-                patches = self._spatial_patches(cache, chs)
+                with trace.span("patch", layout="spatial") as sp:
+                    patches = self._spatial_patches(cache, chs)
+                    if patches is not None:
+                        self._apply_spatial_patches(cache, chs, patches)
+                    sp.set(applied=patches is not None)
                 if patches is not None:
-                    self._apply_spatial_patches(cache, chs, patches)
                     return cache
-        cache = self._build_spatial_state(chs)
+        with trace.span("rebuild", layout="spatial"):
+            cache = self._build_spatial_state(chs)
         self._stacked_put(("spatial", names), cache)
         return cache
 
@@ -1702,10 +1708,11 @@ class BADEngine:
         use_pallas = plans.backend_family(plan.backend) == "pallas"
         compact = plans.is_compact(plan.backend)
         ds = self.dataset
-        cand_p = (self._discover_all(plan, param_chs, p_in, max_cand)
-                  if param_chs else None)
-        cand_s = (self._discover_all(plan, spatial_chs, s_in, max_cand)
-                  if spatial_chs else None)
+        with trace.span("discover"):
+            cand_p = (self._discover_all(plan, param_chs, p_in, max_cand)
+                      if param_chs else None)
+            cand_s = (self._discover_all(plan, spatial_chs, s_in, max_cand)
+                      if spatial_chs else None)
         if compact:
             p_stream, s_stream = self._stream_caps(plan, param_chs,
                                                    spatial_chs, cand_p,
@@ -1720,64 +1727,73 @@ class BADEngine:
         if param_chs:
             cand = cand_p
             up = p_in["up_masks"] if pushdown else None
-            if compact:
-                join_fn = None
-                if plan.backend == "compact_pallas":
-                    from repro_torch.kernels.join_compact import ops as jc_ops
-                    join_fn = jc_ops.join_pairs
-                stream = plans.compact_candidates(cand, p_stream)
-                sj = plans.join_param_stream(
-                    ds, stream, p_in["targets"], p_in["param_field"],
-                    p_in["payload"], nb, up, aggregated, p_in["domains"],
-                    join_fn)
-                res_p = plans.stream_to_stacked(
-                    sj, stream, cand.scanned,
-                    min(p_stream, cand.rows.shape[1]))
-                del stream, sj
-            else:
-                res_p = plans.join_param_targets_all(
-                    ds, cand, p_in["targets"], p_in["param_field"],
-                    p_in["payload"], nb, up, aggregated, p_in["domains"])
+            with trace.span("join"):
+                if compact:
+                    join_fn = None
+                    if plan.backend == "compact_pallas":
+                        from repro_torch.kernels.join_compact import (
+                            ops as jc_ops)
+                        join_fn = jc_ops.join_pairs
+                    stream = plans.compact_candidates(cand, p_stream)
+                    sj = plans.join_param_stream(
+                        ds, stream, p_in["targets"], p_in["param_field"],
+                        p_in["payload"], nb, up, aggregated, p_in["domains"],
+                        join_fn)
+                    res_p = plans.stream_to_stacked(
+                        sj, stream, cand.scanned,
+                        min(p_stream, cand.rows.shape[1]))
+                    del stream, sj
+                else:
+                    res_p = plans.join_param_targets_all(
+                        ds, cand, p_in["targets"], p_in["param_field"],
+                        p_in["payload"], nb, up, aggregated, p_in["domains"])
             if deliver:
                 res_del = res_p
                 if stage is not None:
-                    res_del, *rank_p = enrich.rank_result(
-                        stage, ds, res_p, p_in["rows"], p_in["sids"],
-                        counts=p_in["targets"].counts)
-                del_p = deliver_all(
-                    res_del, p_in["sids"], pw, mp, mn, sc,
-                    target_brokers=p_in["targets"].brokers, num_brokers=nb,
-                    counts=p_in["targets"].counts, ring=p_ring,
-                    epochs=None if p_ring is None else p_in["epochs"])
+                    with trace.span("rank"):
+                        res_del, *rank_p = enrich.rank_result(
+                            stage, ds, res_p, p_in["rows"], p_in["sids"],
+                            counts=p_in["targets"].counts)
+                with trace.span("deliver"):
+                    del_p = deliver_all(
+                        res_del, p_in["sids"], pw, mp, mn, sc,
+                        target_brokers=p_in["targets"].brokers,
+                        num_brokers=nb, counts=p_in["targets"].counts,
+                        ring=p_ring,
+                        epochs=None if p_ring is None else p_in["epochs"])
         if spatial_chs:
             cand = cand_s
-            if compact:
-                stream = plans.compact_candidates(cand, s_stream)
-                sj = plans.join_spatial_stream(
-                    ds, stream, s_in["locs"], s_in["brokers"],
-                    s_in["radius"], s_in["payload"], nb)
-                res_s = plans.stream_to_stacked(
-                    sj, stream, cand.scanned,
-                    min(s_stream, cand.rows.shape[1]))
-                del stream, sj
-            else:
-                spatial_fn = None
-                if use_pallas:
-                    from repro_torch.kernels.spatial_match import ops as sm_ops
-                    spatial_fn = sm_ops.spatial_match
-                res_s = plans.join_spatial_all(
-                    ds, cand, s_in["locs"], s_in["brokers"], s_in["radius"],
-                    s_in["payload"], nb, spatial_fn)
+            with trace.span("join"):
+                if compact:
+                    stream = plans.compact_candidates(cand, s_stream)
+                    sj = plans.join_spatial_stream(
+                        ds, stream, s_in["locs"], s_in["brokers"],
+                        s_in["radius"], s_in["payload"], nb)
+                    res_s = plans.stream_to_stacked(
+                        sj, stream, cand.scanned,
+                        min(s_stream, cand.rows.shape[1]))
+                    del stream, sj
+                else:
+                    spatial_fn = None
+                    if use_pallas:
+                        from repro_torch.kernels.spatial_match import (
+                            ops as sm_ops)
+                        spatial_fn = sm_ops.spatial_match
+                    res_s = plans.join_spatial_all(
+                        ds, cand, s_in["locs"], s_in["brokers"],
+                        s_in["radius"], s_in["payload"], nb, spatial_fn)
             if deliver:
                 res_del = res_s
                 if stage is not None:
-                    res_del, *rank_s = enrich.rank_result(
-                        stage, ds, res_s, s_in["rows"], s_in["sids"])
-                del_s = deliver_all(
-                    res_del, s_in["sids"], pw, mp, mn, sc,
-                    target_brokers=s_in["brokers"], num_brokers=nb,
-                    ring=s_ring,
-                    epochs=None if s_ring is None else s_in["epochs"])
+                    with trace.span("rank"):
+                        res_del, *rank_s = enrich.rank_result(
+                            stage, ds, res_s, s_in["rows"], s_in["sids"])
+                with trace.span("deliver"):
+                    del_s = deliver_all(
+                        res_del, s_in["sids"], pw, mp, mn, sc,
+                        target_brokers=s_in["brokers"], num_brokers=nb,
+                        ring=s_ring,
+                        epochs=None if s_ring is None else s_in["epochs"])
         return (res_p, res_s, del_p, del_s), (rank_p, rank_s)
 
     def _stream_caps(self, plan: plans.ChannelPlan,
@@ -1798,8 +1814,9 @@ class BADEngine:
         width = self.max_window if plan.scan_mode == "window" else max_cand
         floor = 1 << _STREAM_FLOOR
         zero = torch.zeros((), dtype=I32, device=self.device)
-        tots = torch.stack([zero if c is None else c.valid.sum(dtype=I32)
-                            for c in (cand_p, cand_s)]).cpu().tolist()
+        with trace.span("read.stream_totals"):
+            tots = torch.stack([zero if c is None else c.valid.sum(dtype=I32)
+                                for c in (cand_p, cand_s)]).cpu().tolist()
         caps = []
         for kind, chs, tot in (("param", param_chs, tots[0]),
                                ("spatial", spatial_chs, tots[1])):
@@ -1893,61 +1910,65 @@ class BADEngine:
         read), and the compact backends read the live-candidate totals for
         the stream capacity (one read). The per-group scalars, the patches
         and the executed index rows are uploaded without blocking; a
-        cache rebuild uploads its tables with blocking copies."""
+        cache rebuild uploads its tables with blocking copies. Each read
+        is a ``read.*`` span of ``core/trace``."""
         from repro_torch.core.runtime import PendingExecution
-        deliver = request.deliver
-        ordered = sorted(self.channels.values(), key=lambda s: s.index)
-        if request.channels is not None:
-            unknown = set(request.channels) - set(self.channels)
-            if unknown:
-                raise KeyError(f"unknown channels: {sorted(unknown)}")
-            want = set(request.channels)
-            ordered = [st for st in ordered if st.spec.name in want]
-        if not ordered:
-            return PendingExecution(self, [])
-        forced = request.forced_plan(
-            "pallas" if self.use_pallas else "oracle")
-        # with a stage attached and delivery on, every executed plan carries
-        # the stage's identity, so rings and stream buckets key on it
-        tag = (self.enrichment.identity
-               if self.enrichment is not None and deliver else None)
-        groups: Dict[plans.ChannelPlan, Tuple[List, List]] = {}
-        for st in ordered:
-            p = forced or (st.plan or self.default_plan())
-            if forced is None and request.backend is not None:
-                p = dataclasses.replace(p, backend=request.backend)
-            if tag is not None:
-                p = dataclasses.replace(p, scorer=tag)
-            g = groups.setdefault(p, ([], []))
-            (g[0] if st.spec.join == "param" else g[1]).append(st)
-        use_ring = deliver and self.ring_capacity > 0
-        if use_ring and request.channels is None:
-            # plan-switch ring migration: a ring whose (kind, plan,
-            # membership) no longer executes hands its entries to the host
-            # SpillQueue, tagged with the layout they were produced under
-            active = set()
-            for plan, (pchs, schs) in groups.items():
-                if pchs:
-                    active.add(("param", plan,
-                                tuple(st.spec.name for st in pchs)))
-                if schs:
-                    active.add(("spatial", plan,
-                                tuple(st.spec.name for st in schs)))
-            for k in [k for k in self._rings if k not in active]:
-                self._flush_ring(*self._rings.pop(k))
-        pending = [self._dispatch_plan_group(plan, pchs, schs, request.timed,
-                                             deliver, use_ring,
-                                             request.resolve_spills)
-                   for plan, (pchs, schs) in groups.items()]
-        if request.advance:
-            bidx.advance_watermarks(
-                self.index_state,
-                self._upload(np.asarray([st.index for st in ordered])))
+        execution = trace.next_execution()
+        with trace.span("dispatch", execution=execution):
+            deliver = request.deliver
+            ordered = sorted(self.channels.values(), key=lambda s: s.index)
+            if request.channels is not None:
+                unknown = set(request.channels) - set(self.channels)
+                if unknown:
+                    raise KeyError(f"unknown channels: {sorted(unknown)}")
+                want = set(request.channels)
+                ordered = [st for st in ordered if st.spec.name in want]
+            if not ordered:
+                return PendingExecution(self, [], execution)
+            forced = request.forced_plan(
+                "pallas" if self.use_pallas else "oracle")
+            # with a stage attached and delivery on, every executed plan carries
+            # the stage's identity, so rings and stream buckets key on it
+            tag = (self.enrichment.identity
+                   if self.enrichment is not None and deliver else None)
+            groups: Dict[plans.ChannelPlan, Tuple[List, List]] = {}
             for st in ordered:
-                st.last_exec_ts = self.now
-                st.last_exec_size = self.size_host
-                st.executions += 1
-        return PendingExecution(self, pending)
+                p = forced or (st.plan or self.default_plan())
+                if forced is None and request.backend is not None:
+                    p = dataclasses.replace(p, backend=request.backend)
+                if tag is not None:
+                    p = dataclasses.replace(p, scorer=tag)
+                g = groups.setdefault(p, ([], []))
+                (g[0] if st.spec.join == "param" else g[1]).append(st)
+            use_ring = deliver and self.ring_capacity > 0
+            if use_ring and request.channels is None:
+                # plan-switch ring migration: a ring whose (kind, plan,
+                # membership) no longer executes hands its entries to the host
+                # SpillQueue, tagged with the layout they were produced under
+                active = set()
+                for plan, (pchs, schs) in groups.items():
+                    if pchs:
+                        active.add(("param", plan,
+                                    tuple(st.spec.name for st in pchs)))
+                    if schs:
+                        active.add(("spatial", plan,
+                                    tuple(st.spec.name for st in schs)))
+                for k in [k for k in self._rings if k not in active]:
+                    self._flush_ring(*self._rings.pop(k))
+            pending = [self._dispatch_plan_group(plan, pchs, schs, request.timed,
+                                                 deliver, use_ring,
+                                                 request.resolve_spills)
+                       for plan, (pchs, schs) in groups.items()]
+            if request.advance:
+                with trace.span("advance"):
+                    bidx.advance_watermarks(
+                        self.index_state,
+                        self._upload(np.asarray([st.index for st in ordered])))
+                    for st in ordered:
+                        st.last_exec_ts = self.now
+                        st.last_exec_size = self.size_host
+                        st.executions += 1
+            return PendingExecution(self, pending, execution)
 
     def _dispatch_plan_group(self, plan: plans.ChannelPlan,
                              param_chs: List[ChannelState],
@@ -1957,75 +1978,79 @@ class BADEngine:
         """Gather one plan-group's stacked inputs and rings (patching the
         caches), enqueue its work, and store its successor rings; the
         reports materialize later in ``_materialize_group``."""
-        chans = param_chs + spatial_chs
-        max_cand = self.max_candidates
-        if plan.scan_mode == "bad_index":
-            # shared shape bucket: the largest watermark delta across THIS
-            # group's channels, from one host read
-            pend = (self.index_state.counts
-                    - self.index_state.watermarks).cpu().numpy()
-            pending = max(int(pend[st.index]) for st in chans)
-            max_cand = min(_pow2_bucket(pending, 6), self.max_candidates)
-        # fused aggregated targets of an incremental engine are SLOT indices
-        # and its flat targets FLAT-slot indices, not build()'s compacted
-        # rows: spills carry the matching layout so a drain re-packs against
-        # the right table
-        if self.incremental:
-            p_layout = "slot" if plan.aggregation else "flat_slot"
-        else:
-            p_layout = plan.aggregation
-        p_names = tuple(st.spec.name for st in param_chs)
-        s_names = tuple(st.spec.name for st in spatial_chs)
-        p_in = s_in = p_ring = s_ring = None
-        if param_chs:
-            c = self._group_state(param_chs, plan.aggregation)
-            p_in = self._group_scalars(param_chs)
-            p_in.update(targets=c.targets, up_masks=c.up_masks,
-                        domains=c.domains, sids=c.sids)
-            if use_ring:
-                p_ring = self._ring_in(("param", plan, p_names), p_names,
-                                       len(param_chs))
-        if spatial_chs:
-            c = self._spatial_state(spatial_chs)
-            s_in = self._group_scalars(spatial_chs)
-            s_in.update(locs=c.locs, brokers=c.brokers,
-                        sids=self._stacked_spatial_sids(spatial_chs))
-            if use_ring:
-                s_ring = self._ring_in(("spatial", plan, s_names), s_names,
-                                       len(spatial_chs))
-        if timed:
-            self._sync()
-        t0 = time.perf_counter()
-        res, ranks = self._run_group(plan, param_chs, spatial_chs, max_cand,
-                                     deliver, p_in, s_in, p_ring, s_ring)
-        wall = 0.0
-        if timed:
-            self._sync()
-            wall = time.perf_counter() - t0
-        del_p, del_s = res[2], res[3]
+        with trace.span("group", backend=plan.backend, scan=plan.scan_mode,
+                        channels=len(param_chs) + len(spatial_chs)):
+            chans = param_chs + spatial_chs
+            max_cand = self.max_candidates
+            if plan.scan_mode == "bad_index":
+                # shared shape bucket: the largest watermark delta across THIS
+                # group's channels, from one host read
+                with trace.span("read.watermarks"):
+                    pend = (self.index_state.counts
+                            - self.index_state.watermarks).cpu().numpy()
+                pending = max(int(pend[st.index]) for st in chans)
+                max_cand = min(_pow2_bucket(pending, 6), self.max_candidates)
+            # fused aggregated targets of an incremental engine are SLOT indices
+            # and its flat targets FLAT-slot indices, not build()'s compacted
+            # rows: spills carry the matching layout so a drain re-packs against
+            # the right table
+            if self.incremental:
+                p_layout = "slot" if plan.aggregation else "flat_slot"
+            else:
+                p_layout = plan.aggregation
+            p_names = tuple(st.spec.name for st in param_chs)
+            s_names = tuple(st.spec.name for st in spatial_chs)
+            p_in = s_in = p_ring = s_ring = None
+            with trace.span("caches"):
+                if param_chs:
+                    c = self._group_state(param_chs, plan.aggregation)
+                    p_in = self._group_scalars(param_chs)
+                    p_in.update(targets=c.targets, up_masks=c.up_masks,
+                                domains=c.domains, sids=c.sids)
+                    if use_ring:
+                        p_ring = self._ring_in(("param", plan, p_names), p_names,
+                                               len(param_chs))
+                if spatial_chs:
+                    c = self._spatial_state(spatial_chs)
+                    s_in = self._group_scalars(spatial_chs)
+                    s_in.update(locs=c.locs, brokers=c.brokers,
+                                sids=self._stacked_spatial_sids(spatial_chs))
+                    if use_ring:
+                        s_ring = self._ring_in(("spatial", plan, s_names),
+                                               s_names, len(spatial_chs))
+            if timed:
+                self._sync()
+            t0 = time.perf_counter()
+            res, ranks = self._run_group(plan, param_chs, spatial_chs, max_cand,
+                                         deliver, p_in, s_in, p_ring, s_ring)
+            wall = 0.0
+            if timed:
+                self._sync()
+                wall = time.perf_counter() - t0
+            del_p, del_s = res[2], res[3]
 
-        def keep(inp):
-            # the resolved lane reads the dispatch-time sID table at sync,
-            # after later dispatches may have patched the live one in place
-            if inp is None or not (resolve_spills and deliver):
-                return None
-            return inp["sids"].clone()
+            def keep(inp):
+                # the resolved lane reads the dispatch-time sID table at sync,
+                # after later dispatches may have patched the live one in place
+                if inp is None or not (resolve_spills and deliver):
+                    return None
+                return inp["sids"].clone()
 
-        if use_ring:
-            if param_chs:
-                self._rings[("param", plan, p_names)] = (
-                    p_names, p_layout, del_p.ring)
-            if spatial_chs:
-                self._rings[("spatial", plan, s_names)] = (
-                    s_names, plan.aggregation, del_s.ring)
-        return _PendingGroup(
-            plan=plan, param_chs=param_chs, spatial_chs=spatial_chs,
-            res=res, ranks=ranks, p_layout=p_layout,
-            s_layout=plan.aggregation,
-            deliver=deliver, wall=wall, t0=t0,
-            p_epochs=[st.epoch for st in param_chs],
-            s_epochs=[st.epoch for st in spatial_chs],
-            p_sids=keep(p_in), s_sids=keep(s_in))
+            if use_ring:
+                if param_chs:
+                    self._rings[("param", plan, p_names)] = (
+                        p_names, p_layout, del_p.ring)
+                if spatial_chs:
+                    self._rings[("spatial", plan, s_names)] = (
+                        s_names, plan.aggregation, del_s.ring)
+            return _PendingGroup(
+                plan=plan, param_chs=param_chs, spatial_chs=spatial_chs,
+                res=res, ranks=ranks, p_layout=p_layout,
+                s_layout=plan.aggregation,
+                deliver=deliver, wall=wall, t0=t0,
+                p_epochs=[st.epoch for st in param_chs],
+                s_epochs=[st.epoch for st in spatial_chs],
+                p_sids=keep(p_in), s_sids=keep(s_in))
 
     def _materialize_group(self, g: _PendingGroup,
                            reports: Dict[str, ExecutionReport]) -> None:
@@ -2033,45 +2058,50 @@ class BADEngine:
         (counts, bytes, delivery counters and spill streams together), then
         per-channel reports; the pair grids stay on the device
         (``report.result`` holds per-channel views)."""
-        res_p, res_s, del_p, del_s = g.res
-        wall = g.wall
-        for chs, res, dlv, rank, layout, epochs, sids in (
-                (g.param_chs, res_p, del_p, g.ranks[0], g.p_layout,
-                 g.p_epochs, g.p_sids),
-                (g.spatial_chs, res_s, del_s, g.ranks[1], g.s_layout,
-                 g.s_epochs, g.s_sids)):
-            if not chs:
-                continue
-            named = {"num_results": res.num_results,
-                     "num_notified": res.num_notified,
-                     "scanned": res.scanned,
-                     "broker_bytes": res.broker_bytes}
-            if g.deliver:
-                named.update(_delivery_tensors(dlv))
-            if rank is not None:
-                named.update(ranked_pairs=rank[0], ranked_sids=rank[1])
-            h = _host_arrays(named)
-            if not wall:
-                wall = time.perf_counter() - g.t0
-            stats = (self._spill_and_stats(chs, layout, h, epochs, sids)
-                     if g.deliver else {})
-            pay = noti = None
-            if g.deliver and self.debug_delivery_buffers:
-                pay = dlv.pack.payload.cpu().numpy()
-                noti = dlv.fan.notify.cpu().numpy()
-            share = wall / max(len(g.param_chs) + len(g.spatial_chs), 1)
-            for i, st in enumerate(chs):
-                reports[st.spec.name] = ExecutionReport(
-                    channel=st.spec.name, flags=g.plan.flags, plan=g.plan,
-                    result=plans.ChannelResult(*(t[i] for t in res)),
-                    wall_time_s=share,
-                    num_results=int(h["num_results"][i]),
-                    num_notified=int(h["num_notified"][i]),
-                    scanned=int(h["scanned"][i]),
-                    broker_bytes=h["broker_bytes"][i],
-                    overflow=stats.get(st.spec.name),
-                    payload=None if pay is None else pay[i],
-                    notify=None if noti is None else noti[i])
+        with trace.span("materialize"):
+            res_p, res_s, del_p, del_s = g.res
+            wall = g.wall
+            for chs, res, dlv, rank, layout, epochs, sids in (
+                    (g.param_chs, res_p, del_p, g.ranks[0], g.p_layout,
+                     g.p_epochs, g.p_sids),
+                    (g.spatial_chs, res_s, del_s, g.ranks[1], g.s_layout,
+                     g.s_epochs, g.s_sids)):
+                if not chs:
+                    continue
+                named = {"num_results": res.num_results,
+                         "num_notified": res.num_notified,
+                         "scanned": res.scanned,
+                         "broker_bytes": res.broker_bytes}
+                if g.deliver:
+                    named.update(_delivery_tensors(dlv))
+                if rank is not None:
+                    named.update(ranked_pairs=rank[0], ranked_sids=rank[1])
+                h = _host_arrays(named)
+                if not wall:
+                    wall = time.perf_counter() - g.t0
+                stats = {}
+                if g.deliver:
+                    with trace.span("accounting"):
+                        stats = self._spill_and_stats(chs, layout, h, epochs,
+                                                      sids)
+                pay = noti = None
+                if g.deliver and self.debug_delivery_buffers:
+                    with trace.span("read.buffers"):
+                        pay = dlv.pack.payload.cpu().numpy()
+                        noti = dlv.fan.notify.cpu().numpy()
+                share = wall / max(len(g.param_chs) + len(g.spatial_chs), 1)
+                for i, st in enumerate(chs):
+                    reports[st.spec.name] = ExecutionReport(
+                        channel=st.spec.name, flags=g.plan.flags, plan=g.plan,
+                        result=plans.ChannelResult(*(t[i] for t in res)),
+                        wall_time_s=share,
+                        num_results=int(h["num_results"][i]),
+                        num_notified=int(h["num_notified"][i]),
+                        scanned=int(h["scanned"][i]),
+                        broker_bytes=h["broker_bytes"][i],
+                        overflow=stats.get(st.spec.name),
+                        payload=None if pay is None else pay[i],
+                        notify=None if noti is None else noti[i])
 
     # ------------------------------------------------------------------
     # device-resident retry rings
@@ -2095,7 +2125,8 @@ class BADEngine:
         """Push a ring's resident entries into the host SpillQueue (pairs
         keep their recorded epoch as the staleness version). Entries past
         the queue's capacity are lost, counted in ``ring_flush_drops``."""
-        h = _host_arrays(dict(zip(RetryRing._fields, ring)))
+        h = _host_arrays(dict(zip(RetryRing._fields, ring)),
+                         "read.ring_flush")
         pc, sc = h["pair_count"], h["sid_count"]
         rows, tgts = h["pair_rows"], h["pair_targets"]
         eps, vals = h["pair_epochs"], h["sid_values"]
@@ -2159,109 +2190,113 @@ class BADEngine:
         misses this round's buffers is requeued at the front: never
         duplicated, never lost. Call once per tick until
         ``spill.pending_pairs() + spill.pending_sids() == 0``."""
-        out: Dict[str, DrainReport] = {}
-        pw, dev = self.deliver_payload_words, self.device
+        with trace.span("drain"):
+            out: Dict[str, DrainReport] = {}
+            pw, dev = self.deliver_payload_words, self.device
 
-        def merge(name: str, rep: DrainReport) -> None:
-            prev = out.get(name)
-            if prev is None:
-                out[name] = rep
-            else:
-                out[name] = DrainReport(
-                    prev.stats.merged(rep.stats),
-                    rep.payload if prev.payload is None else prev.payload,
-                    rep.notify if prev.notify is None else prev.notify)
-
-        drained_pairs = set()
-        # resolved lane first: entries whose fanout was resolved against the
-        # producing call's own table re-enter with their recorded sID rows
-        # as the table, immune to churn between spill and drain
-        for name in self.spill.resolved_keys():
-            if name in drained_pairs:
-                continue
-            drained_pairs.add(name)
-            rows, tgts, sid_rows = self.spill.pop_resolved(
-                name, self.max_deliver_pairs)
-            dropped = delivered = respilled = 0
-            payload = None
-            if name not in self.channels:
-                dropped = len(rows)
-            elif len(rows):
-                n = len(rows)
-                res = self._synthetic_result(rows,
-                                             np.arange(n, dtype=np.int32))
-                tbl = np.full((_pow2_bucket(n, 6), sid_rows.shape[1]), -1,
-                              np.int32)
-                tbl[:n] = sid_rows
-                payload, dlv, _ = pack_payloads(res, torch.as_tensor(
-                    tbl, device=dev), pw, self.max_deliver_pairs)
-                delivered = int(dlv)
-                payload[:delivered, 1] = torch.as_tensor(tgts[:delivered],
-                                                         device=dev)
-                if delivered < n:   # exact in-order prefix delivered
-                    self.spill._push_front_resolved(
-                        name, rows[delivered:], tgts[delivered:],
-                        sid_rows[delivered:])
-                    respilled = n - delivered
-            if delivered or dropped or respilled:
-                merge(name, DrainReport(
-                    DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
-                    payload=payload))
-
-        for name, layout in self.spill.pair_keys():
-            if name in drained_pairs:
-                # one pair lane per channel per round: the layouts re-pack
-                # against different tables with different wire widths
-                continue
-            drained_pairs.add(name)
-            st = self.channels.get(name)
-            version = st.epoch if st is not None else None
-            rows, tgts, stale = self.spill.pop_pairs(
-                name, layout, self.max_deliver_pairs, version)
-            dropped = stale
-            payload = None
-            delivered = respilled = 0
-            if st is None:
-                dropped += len(rows)
-            elif len(rows):
-                res = self._synthetic_result(rows, tgts)
-                if st.spec.join == "spatial":
-                    sids = self._spatial_sids_table(st)
-                    if sids is None:
-                        sids = torch.zeros((0,), dtype=I32, device=dev)
+            def merge(name: str, rep: DrainReport) -> None:
+                prev = out.get(name)
+                if prev is None:
+                    out[name] = rep
                 else:
-                    sids = self._sid_table(st, layout)
-                payload, dlv, _ = pack_payloads(res, sids, pw,
-                                                self.max_deliver_pairs)
-                delivered = int(dlv)
-                if delivered < len(rows):   # exact in-order prefix delivered
-                    self.spill._push_front_pairs(
-                        name, layout, rows[delivered:], tgts[delivered:],
-                        st.epoch)
-                    respilled = len(rows) - delivered
-            if delivered or dropped or respilled:
-                merge(name, DrainReport(
-                    DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
-                    payload=payload))
+                    out[name] = DrainReport(
+                        prev.stats.merged(rep.stats),
+                        rep.payload if prev.payload is None else prev.payload,
+                        rep.notify if prev.notify is None else prev.notify)
 
-        for name in self.spill.sid_keys():
-            sids = self.spill.pop_sids(name, self.max_notify)
-            if not len(sids):
-                continue
-            # identity fanout: targets ARE the sIDs, so the send stage
-            # re-emits them verbatim in spill order
-            res = self._synthetic_result(sids, sids)
-            buf, dlv, _ = fanout_sids(res, torch.zeros((0,), dtype=I32,
-                                                       device=dev),
-                                      self.max_notify)
-            delivered = int(dlv)
-            respilled = len(sids) - delivered
-            if respilled:
-                self.spill._push_front_sids(name, sids[delivered:])
-            merge(name, DrainReport(
-                DeliveryStats(0, 0, 0, delivered, respilled, 0),
-                notify=buf))
-        return out
+            drained_pairs = set()
+            # resolved lane first: entries whose fanout was resolved against the
+            # producing call's own table re-enter with their recorded sID rows
+            # as the table, immune to churn between spill and drain
+            for name in self.spill.resolved_keys():
+                if name in drained_pairs:
+                    continue
+                drained_pairs.add(name)
+                rows, tgts, sid_rows = self.spill.pop_resolved(
+                    name, self.max_deliver_pairs)
+                dropped = delivered = respilled = 0
+                payload = None
+                if name not in self.channels:
+                    dropped = len(rows)
+                elif len(rows):
+                    n = len(rows)
+                    res = self._synthetic_result(rows,
+                                                 np.arange(n, dtype=np.int32))
+                    tbl = np.full((_pow2_bucket(n, 6), sid_rows.shape[1]), -1,
+                                  np.int32)
+                    tbl[:n] = sid_rows
+                    payload, dlv, _ = pack_payloads(res, torch.as_tensor(
+                        tbl, device=dev), pw, self.max_deliver_pairs)
+                    with trace.span("read.drain"):
+                        delivered = int(dlv)
+                    payload[:delivered, 1] = torch.as_tensor(tgts[:delivered],
+                                                             device=dev)
+                    if delivered < n:   # exact in-order prefix delivered
+                        self.spill._push_front_resolved(
+                            name, rows[delivered:], tgts[delivered:],
+                            sid_rows[delivered:])
+                        respilled = n - delivered
+                if delivered or dropped or respilled:
+                    merge(name, DrainReport(
+                        DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
+                        payload=payload))
+
+            for name, layout in self.spill.pair_keys():
+                if name in drained_pairs:
+                    # one pair lane per channel per round: the layouts re-pack
+                    # against different tables with different wire widths
+                    continue
+                drained_pairs.add(name)
+                st = self.channels.get(name)
+                version = st.epoch if st is not None else None
+                rows, tgts, stale = self.spill.pop_pairs(
+                    name, layout, self.max_deliver_pairs, version)
+                dropped = stale
+                payload = None
+                delivered = respilled = 0
+                if st is None:
+                    dropped += len(rows)
+                elif len(rows):
+                    res = self._synthetic_result(rows, tgts)
+                    if st.spec.join == "spatial":
+                        sids = self._spatial_sids_table(st)
+                        if sids is None:
+                            sids = torch.zeros((0,), dtype=I32, device=dev)
+                    else:
+                        sids = self._sid_table(st, layout)
+                    payload, dlv, _ = pack_payloads(res, sids, pw,
+                                                    self.max_deliver_pairs)
+                    with trace.span("read.drain"):
+                        delivered = int(dlv)
+                    if delivered < len(rows):   # exact in-order prefix delivered
+                        self.spill._push_front_pairs(
+                            name, layout, rows[delivered:], tgts[delivered:],
+                            st.epoch)
+                        respilled = len(rows) - delivered
+                if delivered or dropped or respilled:
+                    merge(name, DrainReport(
+                        DeliveryStats(delivered, respilled, dropped, 0, 0, 0),
+                        payload=payload))
+
+            for name in self.spill.sid_keys():
+                sids = self.spill.pop_sids(name, self.max_notify)
+                if not len(sids):
+                    continue
+                # identity fanout: targets ARE the sIDs, so the send stage
+                # re-emits them verbatim in spill order
+                res = self._synthetic_result(sids, sids)
+                buf, dlv, _ = fanout_sids(res, torch.zeros((0,), dtype=I32,
+                                                           device=dev),
+                                          self.max_notify)
+                with trace.span("read.drain"):
+                    delivered = int(dlv)
+                respilled = len(sids) - delivered
+                if respilled:
+                    self.spill._push_front_sids(name, sids[delivered:])
+                merge(name, DrainReport(
+                    DeliveryStats(0, 0, 0, delivered, respilled, 0),
+                    notify=buf))
+            return out
 
 
 def _delivery_tensors(d: FusedDelivery) -> Dict[str, torch.Tensor]:
@@ -2284,12 +2319,16 @@ def _delivery_tensors(d: FusedDelivery) -> Dict[str, torch.Tensor]:
     return named
 
 
-def _host_arrays(named: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+def _host_arrays(named: Dict[str, torch.Tensor],
+                 read: str = "read.reports") -> Dict[str, np.ndarray]:
     """Read many small tensors with ONE device->host copy: each is
     flattened to int32, concatenated, copied once and split back into numpy
-    arrays of its own shape (bools restored)."""
-    host = torch.cat([t.reshape(-1).to(I32)
-                      for t in named.values()]).cpu().numpy()
+    arrays of its own shape (bools restored). The copy is the ``read``
+    span, with its ``bytes``."""
+    with trace.span(read) as sp:
+        host = torch.cat([t.reshape(-1).to(I32)
+                          for t in named.values()]).cpu().numpy()
+        sp.set(bytes=host.nbytes)
     out, at = {}, 0
     for k, t in named.items():
         n = t.numel()
@@ -2319,7 +2358,8 @@ def _resolve_rows(table: torch.Tensor, targets: np.ndarray) -> np.ndarray:
                                  targets)
     safe = torch.as_tensor(np.clip(targets, 0, table.shape[0] - 1),
                            dtype=torch.long, device=table.device)
-    return table[safe].to(I32).cpu().numpy()
+    with trace.span("read.resolve"):
+        return table[safe].to(I32).cpu().numpy()
 
 
 def _pow2_bucket(n: int, floor_bits: int) -> int:

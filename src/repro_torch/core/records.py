@@ -79,13 +79,30 @@ class RecordBatch:
                    device: DeviceLike = "cuda") -> "RecordBatch":
         dev = resolve_device(device)
         host = np.asarray(fields, dtype=np.int32)
-        f = torch.tensor(host, device=dev)
+        f = to_device(host, dev)
         if location is None:
             loc = torch.zeros((f.shape[0], 2), dtype=torch.float32, device=dev)
         else:
-            loc = torch.tensor(np.asarray(location, dtype=np.float32),
-                               device=dev)
-        return RecordBatch(f.contiguous(), loc.contiguous(), host)
+            loc = to_device(np.asarray(location, dtype=np.float32), dev)
+        return RecordBatch(f, loc, host)
+
+
+def to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A contiguous copy of ``host`` on ``dev``. To a card it is staged in
+    freshly allocated pinned memory and copied without blocking the host
+    (a blocking copy from pageable memory waits for all the work queued on
+    the stream); PyTorch's pinned allocator records the copy on the stream
+    and reuses the block only after it completed."""
+    if dev.type != "cuda":
+        return torch.tensor(host, device=dev).contiguous()
+    staged = torch.empty(host.shape, dtype=_TORCH_DTYPES[host.dtype],
+                         pin_memory=True)
+    staged.numpy()[...] = host
+    return staged.to(dev, non_blocking=True)
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
 
 
 @dataclasses.dataclass

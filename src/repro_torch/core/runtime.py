@@ -37,6 +37,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Protocol, Tuple, runtime_checkable
 
+from repro_torch.core import trace
+
 
 @runtime_checkable
 class EngineProtocol(Protocol):
@@ -89,14 +91,16 @@ class PendingExecution:
     reports and lets go of the dispatched outputs the reports do not hold
     (delivery buffers, rings, tables); later calls return the reports.
     ``latency_s`` records the latency from the end of ``dispatch`` to the
-    end of the first sync."""
+    end of the first sync. ``execution`` is the dispatch's id in
+    ``core/trace``, which the first sync's ``sync`` span carries."""
 
-    def __init__(self, engine, groups: List):
+    def __init__(self, engine, groups: List, execution: int):
         self._engine = engine
         self._groups = groups
         self._reports: Optional[Dict] = None
         self._t0 = time.perf_counter()
         self.latency_s: Optional[float] = None
+        self.execution = execution
 
     @property
     def done(self) -> bool:
@@ -105,8 +109,9 @@ class PendingExecution:
     def sync(self) -> Dict:
         if self._reports is None:
             reports: Dict = {}
-            for g in self._groups:
-                self._engine._materialize_group(g, reports)
+            with trace.span("sync", execution=self.execution):
+                for g in self._groups:
+                    self._engine._materialize_group(g, reports)
             self.latency_s = time.perf_counter() - self._t0
             self._reports = reports
             self._groups = []

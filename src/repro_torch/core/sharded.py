@@ -293,7 +293,6 @@ class ShardedBADEngine:
         unchanged; per-shard views come from ``per_shard_maintenance``."""
         merged = MaintenanceStats()
         for e in self.shards:
-            merged.traces += e.maintenance.traces
             merged.rebuilds += e.maintenance.rebuilds
             merged.patches += e.maintenance.patches
         return merged

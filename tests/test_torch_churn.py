@@ -3,8 +3,7 @@
 spatial cohorts on the per-channel and fused paths. Every check runs the
 same calls on a reference engine and a port engine on the CPU and compares
 exactly: reports, rings, queues, ``fused_sids_table``, and the
-``(rebuilds, patches)`` counters after every tick. The port's ``traces``
-stays 0: eager PyTorch has no jit traces to count."""
+``(rebuilds, patches)`` counters after every tick."""
 import numpy as np
 import pytest
 
@@ -28,7 +27,6 @@ def _assert_tick(je, te, a, b, tag):
     _assert_queues(je, te, tag)
     assert _counters(je) == _counters(te), (tag, je.maintenance,
                                             te.maintenance)
-    assert te.maintenance.traces == 0, tag
     for name in je.channels:
         for agg in (False, True):
             assert_same(je.fused_sids_table(name, agg),

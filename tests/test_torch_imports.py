@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``src/repro_torch``, nor
-``chip_smoke.py``, the torch examples or the profiling tool, imports JAX
+``chip_smoke.py``, the torch examples or the profiling tools, imports JAX
 or the reference package, and importing the engine leaves JAX unloaded."""
 import ast
 import pathlib
@@ -16,7 +16,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "examples" / "enriched_pipeline_torch.py",
     ROOT / "examples" / "crime_alerts_torch.py",
     ROOT / "examples" / "train_lm_torch.py",
-    ROOT / "tools" / "profile_main_path.py"]
+    ROOT / "tools" / "profile_main_path.py",
+    ROOT / "tools" / "trace_cell.py"]
 
 
 def _imported_modules(path: pathlib.Path):

@@ -146,7 +146,7 @@ def test_run_ticks_matches_reference(depth):
         [getattr(tr, k) for k in COUNTERS]
     assert (jr.maintenance.rebuilds, jr.maintenance.patches) == \
         (tr.maintenance.rebuilds, tr.maintenance.patches)
-    assert tr.maintenance.traces == 0 and tr.maintenance.rebuilds == 0
+    assert tr.maintenance.rebuilds == 0
     assert tr.maintenance.patches > 0 and tr.pipeline_depth == depth
     assert tr.delivered_sids > 0 and tr.user_adds > 0
     assert tp == jp and ts == js and tl == jl

@@ -3,7 +3,7 @@
 4 forced host devices, on the same calls and data. Shard by shard the
 reports are exact (pair grids, counts, ``DeliveryStats``, payload and
 notify buffers, dtypes included), ``routed`` is exact, the per-shard
-``(rebuilds, patches)`` equal the reference's with ``traces == 0``, and a
+``(rebuilds, patches)`` equal the reference's, and a
 facade of one shard equals the plain engine. The plan matrix and
 ``drop_channel`` are in ``test_torch_sharded_plans.py``; churn, overflow
 and ``reshard`` in ``test_torch_sharded_churn.py`` (three files, so that
@@ -59,7 +59,6 @@ def test_per_shard_reports_routed_and_counters_match_reference(multidevice):
         b = te.execute_all(TFlags(*FLAGS), timed=False, deliver=True)
         assert_sharded(a, b, f"tick {tick}")
         assert counters(je) == counters(te), tick
-        assert te.maintenance.traces == 0
         assert (je.ring_pending_pairs(), je.ring_pending_sids()) == \
             (te.ring_pending_pairs(), te.ring_pending_sids()), tick
         sink = {"pairs": [], "sids": []}

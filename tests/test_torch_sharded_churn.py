@@ -82,7 +82,7 @@ def test_churn_overflow_fuzz_through_run_ticks(multidevice, oracle,
     """Capped engines under churn and sustained overflow, driven by
     ``run_ticks``: the ChurnReport counters, the delivered (row, sID) and
     sID multisets, the surviving population and the per-shard (rebuilds,
-    patches) equal the reference's; ``traces`` stays 0; the sID multiset
+    patches) equal the reference's; the sID multiset
     equals the oracle's and the pairs are a sub-multiset of its (pairs whose
     group churned while in a ring go stale by design)."""
     je, te = _engines(num_shards)
@@ -92,7 +92,7 @@ def test_churn_overflow_fuzz_through_run_ticks(multidevice, oracle,
         [getattr(tr, k) for k in COUNTERS]
     assert tp == jp and ts == js and tl == jl
     assert counters(je) == counters(te)
-    assert tr.maintenance.traces == 0 and tr.maintenance.patches > 0
+    assert tr.maintenance.patches > 0
     assert tr.spilled > 0, "the caps must overflow"
     assert ts == oracle[1]
     assert sub_multiset(tp, oracle[0])
