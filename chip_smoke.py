@@ -186,7 +186,16 @@ cluster size is printed and checked at each shape), ``join_compact``,
 ``flash_attention`` and ``flash_decode`` beside the floor under their time (the empty kernel of
 ``csrc/launch_floor.cu`` on the same grid, timed the same way), and
 ``join_compact``'s path (its quad path at both shapes, asserted from the
-wrapper's counts); then ``torch.profiler``
+wrapper's counts); ``deliver`` (every phase that delivers counts its
+launches a tick: a channel a tick on the per-channel path, a plan-group a
+tick on the fused ones, the param groups' 10,252-word lines on the 16-byte
+path) at the calls of the benchmark's cells, the last of four ticks of
+``paper-1m.fused`` (its param and spatial plan-groups) and
+``trending-2lang.fused`` on engines built as ``bad_bench/system.py``
+builds them, every field of ``FusedDelivery`` against the plain version
+bit for bit, timed beside its bound (each output word written once, each
+input read where it is needed), the floor of its four grids and the plain
+version; then ``torch.profiler``
 checks that each ``flash_decode`` entry enqueues one kernel a call (last,
 so that its tracing touches no timed phase). The line before the last is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
@@ -1178,6 +1187,146 @@ def join_compact_bytes(tgt, tgt_n, members, brokers, valid, payload) -> int:
             + 64 * sectors(live))
 
 
+# the deliver kernel at the calls of the benchmark's cells
+# (bad_bench/configs, bad_bench/cells): every deliver_all of the last of
+# DELIVER_TICKS ticks, one a plan-group, with the plan-group's name
+DELIVER_CELLS = (("paper-1m.fused", ("param", "spatial")),
+                 ("trending-2lang.fused", ("param",)))
+DELIVER_SEED = 1
+DELIVER_TICKS = 4
+
+
+def deliver_calls(dev, workload: str) -> list:
+    """The arguments (by name) of every ``deliver_all`` of the cell's last
+    tick, from its engine as the benchmark builds it."""
+    import inspect
+    from bad_bench import run as bench_run
+    from bad_bench import system
+    from bad_bench import traffic as T
+    from repro_torch.core import broker
+    from repro_torch.core import engine as E
+    from repro_torch.core import records as R
+    _, _, cell, cfg = bench_run.load(ROOT, workload)
+    eng = system.build(cfg, cell, DELIVER_SEED, dev)
+    pool = T.Pool(cfg, cell, DELIVER_SEED)
+    sig, real, calls = inspect.signature(broker.deliver_plain), \
+        E.deliver_all, []
+
+    def keep(*a, **k):
+        bound = sig.bind(*a, **k)
+        bound.apply_defaults()
+        calls.append(dict(bound.arguments))
+        return real(*a, **k)
+
+    E.deliver_all = keep
+    try:
+        for k in range(DELIVER_TICKS):
+            calls.clear()
+            f, loc = pool.get(k)
+            eng.ingest(R.RecordBatch.from_numpy(f, loc, device=dev))
+            eng.execute_all(None, deliver=True, timed=False)
+            eng.drain_spilled()
+    finally:
+        E.deliver_all = real
+    sync(dev)
+    del eng
+    return list(calls)
+
+
+def same_delivery(got, want) -> bool:
+    """Every field of two ``FusedDelivery`` values equal, bit for bit."""
+    if got is None or want is None:
+        return got is None and want is None
+    if isinstance(got, tuple):
+        return all(same_delivery(g, w) for g, w in zip(got, want))
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and bool(torch.equal(got, want)))
+
+
+def deliver_bytes(a: dict, want) -> int:
+    """The bytes one ``deliver`` call must move: every output written once
+    (the wire lines, notify, the spill streams, the successor ring and, ring-
+    less, the spill mask) and each input read once where it is needed (the
+    validity flags; row, target, member count and broker of a valid pair;
+    the ring; the sID row of each live line)."""
+    result, ring = a["result"], a["ring"]
+    C = result.pair_valid.shape[0]
+    P = result.pair_valid[0].numel()
+    max_pairs, width = want.pack.payload.shape[1:]
+    S = a["group_sids"].shape[-1]
+    W = 0 if ring is None else ring.window
+    nvalid = int(result.pair_valid.sum())
+    lines = int(want.pack.delivered.sum())
+    out = (4 * C * max_pairs * width + 4 * C * a["max_notify"]
+           + C * a["spill_cap"] * (13 + 9) + 16 * C * W
+           + (C * P if ring is None else 0))
+    inp = (C * P + 8 * nvalid + (4 * nvalid if S else 0)
+           + (4 * lines if a["target_brokers"] is not None else 0)
+           + 20 * C * W + 4 * S * lines)
+    return out + inp
+
+
+def deliver_floor(a: dict, want):
+    """The empty kernel on each of the four launches' grids."""
+    from repro_torch.kernels.deliver import ops as dl_ops
+    payload = want.pack.payload
+    C = payload.shape[0]
+    tiles = -(-a["result"].pair_valid[0].numel() // dl_ops.TILE)
+    fan, line, threads, _, _ = dl_ops.grid(
+        C, payload.shape[1], payload.shape[2], want.fan.notify.shape[1],
+        dl_ops.vector_ok([payload], payload.shape[2]))
+    tile_blocks = min(C * tiles, dl_ops.MAX_BLOCKS)
+    calls = [floor_call(tile_blocks, threads),
+             floor_call(C, dl_ops.SCAN_THREADS),
+             floor_call(tile_blocks, threads),
+             floor_call(fan + line, threads)]
+
+    def launch():
+        for c in calls:
+            c()
+    return launch
+
+
+def measure_deliver(a: dict) -> dict:
+    """One ``deliver_all`` call of a cell: the kernel against the plain
+    version on every field of ``FusedDelivery``, bit for bit, then timed as
+    ``measure`` times an entry (``ms`` a CUDA graph of calls, the four
+    launches alone; ``wrapper_ms`` and ``plain_ms`` by CUDA events;
+    ``floor_ms`` the empty kernel on the four grids) beside ``bound_ms``,
+    ``deliver_bytes`` over the memory rate."""
+    from repro_torch.core import broker
+    from repro_torch.kernels.deliver import ops as dl_ops
+    before = dl_ops.LAUNCHES
+    got = broker.deliver_all(**a)
+    want = broker.deliver_plain(**a)
+    sync(got.pack.payload.device)
+    assert dl_ops.LAUNCHES == before + 1
+    payload = want.pack.payload
+    C, max_pairs, width = payload.shape
+    k = dict(shape=f"C={C} max_pairs={max_pairs} width={width} "
+                   f"P={a['result'].pair_valid[0].numel()}",
+             equal=same_delivery(got, want),
+             path="vector" if dl_ops.vector_ok([got.pack.payload], width)
+             else "scalar",
+             ring=a["ring"] is not None,
+             identity=a["group_sids"].shape[-1] == 0,
+             live_lines=int(want.pack.delivered.sum()),
+             live_sids=int(want.fan.delivered.sum()),
+             bound_bytes=deliver_bytes(a, want), bound_by="bytes")
+    floor = deliver_floor(a, want)
+    del got, want, payload
+    torch.cuda.empty_cache()
+    k["bound_ms"] = 1e3 * k["bound_bytes"] / HBM_BYTES_PER_S
+    iters = int(min(20, max(3, 10 / k["bound_ms"])))
+    k.update(ms=graph_ms(lambda: broker.deliver_all(**a), iters),
+             wrapper_ms=cuda_ms(lambda: broker.deliver_all(**a), iters),
+             plain_ms=cuda_ms(lambda: broker.deliver_plain(**a),
+                              max(3, iters // 4)),
+             floor_ms=graph_ms(floor, iters))
+    torch.cuda.empty_cache()
+    return k
+
+
 def measure(case: dict, shape: str) -> dict:
     """One kernel entry at one shape: held against its plain version
     (``max_abs_err``; within the case's (atol, rtol) ``tolerance``, exact
@@ -1305,12 +1454,19 @@ ENTRIES = {
     "join_compact": ("join_compact", "LAUNCHES", "SHAPE"),
     "flash_attention": ("flash_attention", "LAUNCHES", "SHAPE"),
     "flash_decode": ("flash_decode", "LAUNCHES", "SHAPE"),
+    "deliver": ("deliver", "LAUNCHES", "SHAPE"),
 }
 
 
 # the launches of one path of an entry, counted beside the entry's total:
 # (module, name of the count)
-PATHS = {"join_compact_vector": ("join_compact", "VECTOR_LAUNCHES")}
+PATHS = {"join_compact_vector": ("join_compact", "VECTOR_LAUNCHES"),
+         "deliver_vector": ("deliver", "VECTOR_LAUNCHES")}
+
+# a fused tick of the main engine's two plan-groups delivers twice: the
+# param group's 10,252-word lines on the 16-byte path, the spatial group's
+# 13-word lines off it
+FUSED_DELIVER = dict(deliver=2, deliver_vector=1)
 
 
 def _ops(module: str):
@@ -1393,7 +1549,10 @@ def main_path(dev, cfg: dict) -> dict:
     launches = launch_counts()
     if dev.type == "cuda":
         want = dict.fromkeys(launches, 0)
-        want.update(predicate_filter=cfg["ticks"], spatial_match=cfg["ticks"])
+        # a delivery a channel a tick, the param channels' on the 16-byte
+        # path
+        want.update(predicate_filter=cfg["ticks"], spatial_match=cfg["ticks"],
+                    deliver=3 * cfg["ticks"], deliver_vector=2 * cfg["ticks"])
         assert launches == want, launches
     return dict(setup_s=setup_s, wall_s=wall, ticks=cfg["ticks"],
                 tick_ms_mean=1e3 * float(np.mean(tick_s)),
@@ -1464,7 +1623,8 @@ def fused_path(dev, cfg: dict) -> dict:
         if dev.type == "cuda":
             want = dict.fromkeys(got, 0)
             want.update(predicate_filter=1, spatial_match_stacked=1,
-                        join_compact=1, join_compact_vector=1)
+                        join_compact=1, join_compact_vector=1,
+                        **FUSED_DELIVER)
             assert got == want, (tick, got)
         for b, names in groups.items():
             group_ms[b].append(1e3 * sum(reps[n].wall_time_s for n in names))
@@ -1924,7 +2084,7 @@ def enriched_phase(dev, cfg: dict, lm_cfg, budget: int) -> dict:
             want.update(predicate_filter=1, spatial_match_stacked=1,
                         join_compact=1, join_compact_vector=1,
                         flash_attention=lm_cfg.superlayer_repeat
-                        * len(groups))
+                        * len(groups), **FUSED_DELIVER)
             assert got == want, (tick, got)
             score_ms.append([ev[0].elapsed_time(ev[1])
                              for _, _, ev in stage.calls])
@@ -2069,7 +2229,8 @@ def churn_run(dev, cfg: dict, eng, specs, users, live, wl, ticks: int,
             got = since(before[0])
             want = dict.fromkeys(got, 0)
             want.update(predicate_filter=1, spatial_match_stacked=1,
-                        join_compact=1, join_compact_vector=1)
+                        join_compact=1, join_compact_vector=1,
+                        **FUSED_DELIVER)
             assert got == want, (tick, got)
             before[0] = launch_counts()
         if tick == check_tick:
@@ -2138,7 +2299,9 @@ def churn_phase(dev, cfg: dict) -> dict:
         assert a["launches"]["predicate_filter"] == n and \
             a["launches"]["spatial_match_stacked"] == n and \
             a["launches"]["join_compact"] == n == \
-            a["launches"]["join_compact_vector"], a["launches"]
+            a["launches"]["join_compact_vector"] and \
+            a["launches"]["deliver"] == 2 * n == \
+            2 * a["launches"]["deliver_vector"], a["launches"]
     eng_a = a_parts[0]
 
     b_parts = churn_engine(dev, cfg)
@@ -2155,7 +2318,9 @@ def churn_phase(dev, cfg: dict) -> dict:
         assert b["launches"]["predicate_filter"] == n and \
             b["launches"]["spatial_match_stacked"] == n and \
             b["launches"]["join_compact"] == n == \
-            b["launches"]["join_compact_vector"], b["launches"]
+            b["launches"]["join_compact_vector"] and \
+            b["launches"]["deliver"] == 2 * n == \
+            2 * b["launches"]["deliver_vector"], b["launches"]
     del b_parts
     if cuda:
         torch.cuda.empty_cache()
@@ -2398,6 +2563,7 @@ def sharded_run(dev, cfg: dict, num_shards: int, tick_rows: int,
         if cuda:
             want = dict.fromkeys(got, 0)
             want.update(dict.fromkeys(SHARDED_KERNELS, s))
+            want.update({k: s * n for k, n in FUSED_DELIVER.items()})
             assert got == want, (tick, s, got)
         re_sids, re_pairs = drained_sids(drained, exact)
         tick_content, tick_notified = {}, {}
@@ -4080,8 +4246,8 @@ def main() -> int:
     print(f"[fused] totals {json.dumps(fp['totals'])}; ring pending "
           f"{fp['ring_pending']}, queue pending {fp['queue_pending']}")
     print(f"[fused] launches {json.dumps(fp['launches'])} (1 predicate_filter"
-          f", 1 spatial_match_stacked, 1 join_compact on its vector path per "
-          f"tick); largest "
+          f", 1 spatial_match_stacked, 1 join_compact on its vector path, 2 "
+          f"deliver, 1 of them on its vector path, per tick); largest "
           f"shapes {json.dumps(fp['shapes'])}; tick 0 equal to "
           f"execute_channel for {fp['same']} channels")
     print(f"[fused] max_memory_allocated "
@@ -4372,6 +4538,51 @@ def main() -> int:
                 kind: r["launches"].get(e["name"], 0)
                 for kind, r in dry.items()}
     assert min(sharded.values()) > 0, sharded
+    # deliver at the benchmark cells' own calls: paper-1m's param and
+    # spatial plan-groups, and trending's; its launches are the fused main
+    # path's, each on the path its width takes
+    torch.cuda.empty_cache()
+    rows = []
+    for workload, groups in DELIVER_CELLS:
+        calls = deliver_calls(dev, workload)
+        assert len(calls) == len(groups), (workload, len(calls))
+        for group, a in zip(groups, calls):
+            k = measure_deliver(a)
+            rows.append(k)
+            print(f"[kernel] deliver {k['shape']} ({workload}, {group} "
+                  f"plan-group; {k['live_lines']} live lines, "
+                  f"{k['live_sids']} sIDs): {k['ms']:.4f} ms (graph of "
+                  f"wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, plain "
+                  f"{k['plain_ms']:.4f} ms, floor {k['floor_ms']:.4f} ms "
+                  f"(empty kernel, the four grids), bound "
+                  f"{k['bound_ms']:.4f} ms (bytes, {k['bound_bytes']} B), "
+                  f"{k['path']} path, "
+                  f"{'equal to' if k['equal'] else 'DIFFERENT from'} the "
+                  f"plain version bit for bit")
+        del calls
+        torch.cuda.empty_cache()
+    assert all(k["equal"] for k in rows), rows
+    assert [k["path"] for k in rows] == ["vector", "scalar", "vector"], rows
+    assert fp["launches"]["deliver"] == 2 * fp["ticks"] == \
+        2 * fp["launches"]["deliver_vector"], fp["launches"]
+    param, spatial, trending = ({key: k[key] for key in (
+        "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+        "shape", "path", "live_lines", "live_sids")} for k in rows)
+    entries.append({
+        "name": "deliver", "route": "cuda",
+        "source": "src/repro_torch/csrc/deliver.cu",
+        "replaces": "src/repro/core/broker.py:538",
+        "launches": fp["launches"]["deliver"],
+        "launches_on": "fused main path",
+        "vector_launches": fp["launches"]["deliver_vector"],
+        "sharded_launches": sh["full"][4]["launches"]["deliver"],
+        "max_abs_err": 0.0, "tolerance": 0.0, "tolerance_rel": 0.0,
+        "within_tolerance": True, "library_ms": None,
+        "cell": "paper-1m.fused, param plan-group", **param,
+        "paper1m_spatial": dict(spatial, cell="paper-1m.fused, spatial "
+                                "plan-group"),
+        "trending": dict(trending, cell="trending-2lang.fused, param "
+                         "plan-group")})
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)
     print(f"[parity] one kernel a flash_decode call (torch.profiler): "

@@ -86,6 +86,46 @@ def insert(state: BADIndexState, row_ids: torch.Tensor,
     return state
 
 
+def make_room(state: BADIndexState,
+              matches: torch.Tensor) -> Tuple[int, np.ndarray]:
+    """Before ``insert(state, ..., matches)``: move the live window
+    ``[watermark, count)`` of every channel that the insert would carry
+    past the capacity to the front of its buffer, in place on the device.
+    The entries below a watermark are delivered (``compact`` drops them
+    the same way), and every read of the index is relative to the
+    watermark, so nothing a later execution sees changes. One host read
+    (the counts, watermarks and new entries).
+
+    Returns the largest count the insert leaves in a channel that it does
+    not overflow, and the channels it overflows, as ``insert`` says: each
+    holds watermark 0 (never executed, or its live window alone does not
+    fit), so nothing here can make room in it until an execution moves
+    its watermark."""
+    cap = state.capacity
+    with trace.span("read.index_counts"):
+        counts, wms, n_new = torch.stack(
+            [state.counts, state.watermarks,
+             matches.sum(dim=0, dtype=torch.int32)]).cpu().numpy()
+    for c in np.flatnonzero((counts + n_new > cap) & (wms > 0)):
+        _to_front(state, c, int(wms[c]), int(counts[c]))
+        counts[c] -= wms[c]
+    after = counts + n_new
+    full = np.flatnonzero(after > cap)
+    return int(np.delete(after, full).max(initial=0)), full
+
+
+def _to_front(state: BADIndexState, c: int, wm: int, count: int) -> None:
+    """Channel ``c``'s live window ``[wm, count)`` to the front of its
+    buffer, in place; its watermark to 0."""
+    live = count - wm
+    if live:
+        state.row_ids[c, :live] = state.row_ids[c, wm:count].clone()
+    state.row_ids[c, live:count].fill_(-1)
+    # fill_ takes the value as a kernel argument: no host copy
+    state.counts[c:c + 1].fill_(live)
+    state.watermarks[c:c + 1].fill_(0)
+
+
 def new_entries(state: BADIndexState, channel: int,
                 max_new: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window of entries since the watermark for one channel.
@@ -130,17 +170,9 @@ def compact(state: BADIndexState) -> BADIndexState:
     the fixed-capacity buffer behaves like the paper's LSM merge of old
     components. Returns a new state on the same device.
     """
-    bufs = state.row_ids.cpu().numpy().copy()
-    counts = state.counts.cpu().numpy().copy()
-    wms = state.watermarks.cpu().numpy().copy()
-    for c in range(bufs.shape[0]):
-        live = bufs[c, wms[c]:counts[c]].copy()
-        bufs[c] = -1
-        bufs[c, : live.shape[0]] = live
-        counts[c] = live.shape[0]
-        wms[c] = 0
-    dev = state.row_ids.device
-    return BADIndexState(torch.as_tensor(bufs, device=dev),
-                         torch.as_tensor(counts, device=dev),
-                         torch.as_tensor(np.asarray(wms), device=dev),
-                         state.overflowed.clone())
+    new = BADIndexState(state.row_ids.clone(), state.counts.clone(),
+                        state.watermarks.clone(), state.overflowed.clone())
+    counts, wms = torch.stack([state.counts, state.watermarks]).cpu().numpy()
+    for c in range(new.num_channels):
+        _to_front(new, c, int(wms[c]), int(counts[c]))
+    return new

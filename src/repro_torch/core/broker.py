@@ -11,7 +11,10 @@ their *work* is real and measurable, mirroring Table 2's three stages:
 
 ``pack_payloads_all`` / ``fanout_sids_all`` / ``deliver_all`` run every
 channel's convert+send over a stacked leading channel axis C (the
-single-channel engine calls them at C == 1). They are gather-formulated:
+single-channel engine calls them at C == 1). On a card ``deliver_all`` is
+the hand-written ``deliver`` kernel (``kernels/deliver``: every output word
+written once, four launches); what follows describes the plain version
+``deliver_plain``, which the CPU and ``meta`` run. It is gather-formulated:
 each output slot binary-searches its source pair in per-channel prefix sums
 (batched ``torch.searchsorted(..., right=True)`` over (C, P) rows), so the
 work is proportional to the delivery capacity, not to the padded pair grid.
@@ -38,6 +41,7 @@ import torch
 from repro_torch.core import plans
 from repro_torch.core.plans import ChannelResult
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import runs_plain
 
 HEADER_WORDS = 4  # [row_id, target_idx, member_count, payload_words]
 I32 = torch.int32
@@ -500,7 +504,32 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
     matches are delivered FIRST (stale ones are dropped and counted), fresh
     result pairs follow, and the live overflow tail re-enters the output
     ring up to its window; only what overflows PAST the ring reaches the
-    spill streams."""
+    spill streams.
+
+    A CUDA tensor launches the ``deliver`` kernel (``kernels/deliver``);
+    a ``cpu`` or ``meta`` tensor runs the plain version, ``deliver_plain``.
+    Both give the same ``FusedDelivery``, bit for bit."""
+    args = (result, group_sids, payload_words, max_pairs, max_notify,
+            spill_cap, caps_pairs, caps_notify, target_brokers, num_brokers,
+            counts, ring, epochs)
+    if runs_plain(result.pair_valid):
+        return deliver_plain(*args)
+    from repro_torch.kernels.deliver import ops
+    return ops.deliver(*args)
+
+
+def deliver_plain(result: ChannelResult, group_sids: torch.Tensor,
+                  payload_words: int, max_pairs: int, max_notify: int,
+                  spill_cap: int,
+                  caps_pairs: Optional[torch.Tensor] = None,
+                  caps_notify: Optional[torch.Tensor] = None,
+                  target_brokers: Optional[torch.Tensor] = None,
+                  num_brokers: int = 0,
+                  counts: Optional[torch.Tensor] = None,
+                  ring: Optional[RetryRing] = None,
+                  epochs: Optional[torch.Tensor] = None) -> FusedDelivery:
+    """``deliver_all`` in PyTorch operations: the plain version of the
+    ``deliver`` kernel."""
     if ring is not None:
         return _deliver_with_ring(result, group_sids, payload_words,
                                   max_pairs, max_notify, spill_cap, ring,

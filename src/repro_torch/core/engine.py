@@ -847,12 +847,49 @@ class BADEngine:
                 matches = pf_ops.predicate_filter(batch.fields, self._conds)
             else:
                 matches = evaluate_conditions(batch.fields, self._conds)
+            self._make_room(matches)
             bidx.insert(self.index_state, dev_rows, matches)
             self.size_host += n
             if n:
                 self.now = max(self.now,
                                int(batch.host_fields[:, R.TIMESTAMP].max()))
             return row_ids
+
+    @property
+    def index_state(self) -> bidx.BADIndexState:
+        return self._index_state
+
+    @index_state.setter
+    def index_state(self, state: bidx.BADIndexState) -> None:
+        # a new state (a channel created or dropped, state installed):
+        # its counts are unknown until ``_make_room`` reads them
+        self._index_state = state
+        self._index_bound = None
+        self._index_full = frozenset()
+
+    def _make_room(self, matches: torch.Tensor) -> None:
+        """Keep the BAD index from dropping entries it need not: a host
+        bound on the largest count of the channels that are not full grows
+        by the batch's rows each insert; only when it could pass the
+        capacity does ``bidx.make_room`` read the counts back and shift the
+        executed channels' live windows to the front (the LSM merge of
+        paper §4.3). A full channel (watermark 0: nothing to shift) stays
+        out of the bound until an execution moves its watermark
+        (``_advanced``), so it costs one read when it fills, not one an
+        ingest."""
+        n = matches.shape[0]
+        bound = self._index_bound
+        if bound is not None and bound + n <= self._index_state.capacity:
+            self._index_bound = bound + n
+            return
+        bound, full = bidx.make_room(self._index_state, matches)
+        self._index_bound, self._index_full = bound, frozenset(full.tolist())
+
+    def _advanced(self, rows) -> None:
+        """The watermarks of these index rows moved: a full one among them
+        can make room now, so the next ingest reads the counts."""
+        if self._index_full.intersection(rows):
+            self._index_bound = None
 
     # ------------------------------------------------------------------
     # data plane: channel execution
@@ -1208,6 +1245,7 @@ class BADEngine:
         wall = time.perf_counter() - t0
         if advance:
             bidx.advance_watermark(self.index_state, st.index)
+            self._advanced((st.index,))
             st.last_exec_ts = self.now
             st.last_exec_size = self.size_host
             st.executions += 1
@@ -1961,9 +1999,10 @@ class BADEngine:
                        for plan, (pchs, schs) in groups.items()]
             if request.advance:
                 with trace.span("advance"):
-                    bidx.advance_watermarks(
-                        self.index_state,
-                        self._upload(np.asarray([st.index for st in ordered])))
+                    rows = [st.index for st in ordered]
+                    bidx.advance_watermarks(self.index_state,
+                                            self._upload(np.asarray(rows)))
+                    self._advanced(rows)
                     for st in ordered:
                         st.last_exec_ts = self.now
                         st.last_exec_size = self.size_host

@@ -119,6 +119,8 @@ def library() -> ctypes.CDLL:
         lib.flash_decode_block.restype = i
         lib.flash_attention_block.argtypes = [i, i, i, i, i, i, i, p, p, p]
         lib.flash_attention_block.restype = i
+        lib.deliver_launch.argtypes = [p, p]
+        lib.deliver_launch.restype = i
         lib.launch_floor_launch.argtypes = [ctypes.c_longlong, i, i, i, p]
         lib.launch_floor_launch.restype = i
         _lib = lib

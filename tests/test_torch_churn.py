@@ -52,24 +52,65 @@ FUZZ_PLANS = {
 }
 
 
+def _every(engines, call, *args):
+    """One control-plane call on every engine; equal return values."""
+    out = [getattr(eng, call)(*args) for eng in engines]
+    for x in out[:-1]:
+        assert_same(np.asarray(x), np.asarray(out[-1]), call)
+    return out[-1]
+
+
+def _assert_counts(a, b, names, tag):
+    """The reports of ``names``: counts, bytes, overflow stats and the
+    delivered content (not the result grids, whose padding follows the
+    plan-group's shared shape bucket)."""
+    for name in names:
+        x, y, t = a[name], b[name], f"{tag} {name}"
+        assert (x.num_results, x.num_notified, x.scanned) == \
+            (y.num_results, y.num_notified, y.scanned), t
+        assert_same(x.broker_bytes, y.broker_bytes, f"{t} broker_bytes")
+        assert stats_tuple(x.overflow) == stats_tuple(y.overflow), t
+        assert np.array_equal(x.payload, y.payload), t
+        assert np.array_equal(x.notify, y.notify), t
+
+
 @pytest.mark.parametrize("layout", list(FUZZ_PLANS))
 def test_delta_engine_fuzz_matches_reference(layout):
     """Seeded interleavings of subscribe_bulk / subscribe /
     remove_subscriptions / unsubscribe / cohort churn / ingest under caps
-    that overflow every tick: after every tick the reports (delivered
-    content included), rings, queues, every ``fused_sids_table`` and the
-    maintenance counters equal the reference's, and steady churn patches
-    (rebuilds flat after the first tick)."""
-    je, te, rng = _engines(101 + list(FUZZ_PLANS).index(layout))
-    je.debug_delivery_buffers = te.debug_delivery_buffers = True
+    that overflow every tick, at the pairs' BAD-index capacity of 512,
+    which the 1,200 rows the ticks ingest pass. There the reference's
+    index drops the entries past its capacity, where the port's engine
+    makes room: every channel executes every tick, so its live window
+    fits. So the port equals a reference whose index the rows never fill
+    (2,048): after every tick the reports (delivered content included),
+    rings, queues, every ``fused_sids_table`` and the maintenance counters
+    equal its, and steady churn patches (rebuilds flat after the first
+    tick). Against the reference at 512, channel by channel, the reports
+    are equal until its index overflows in a channel that scans the index
+    (a window scan reads the dataset and stays equal); in the tick it
+    first does, the port's results are the reference's plus those of the
+    entries it dropped (more results, the 2,048 reference's)."""
+    seed = 101 + list(FUZZ_PLANS).index(layout)
+    je, te, rng = _engines(seed)
+    jw = _engines(seed, index_capacity=2048)[0]
+    assert je.index_capacity == te.index_capacity == 512
+    refs = (je, jw)
+    for eng in (*refs, te):
+        eng.debug_delivery_buffers = True
     p_plan, s_plan = FUZZ_PLANS[layout]
+    # a channel on a window scan reads the dataset, not the BAD index
+    scans = {CRIME: s_plan[0], **{name: p_plan[0] for name in PARAM}}
     for name in PARAM:
-        je.set_plan(name, JPlan(*p_plan))
+        for eng in refs:
+            eng.set_plan(name, JPlan(*p_plan))
         te.set_plan(name, TPlan(*p_plan))
-    je.set_plan(CRIME, JPlan(*s_plan))
+    for eng in refs:
+        eng.set_plan(CRIME, JPlan(*s_plan))
     te.set_plan(CRIME, TPlan(*s_plan))
-    _both(je, te, "subscribe_users", CRIME, np.arange(0, 24, 2))
+    _every((*refs, te), "subscribe_users", CRIME, np.arange(0, 24, 2))
     live = {n: list(range(200)) for n in PARAM}
+    dropped = {}
     for tick in range(6):
         for _ in range(3):
             op = int(rng.integers(0, 5))
@@ -77,35 +118,50 @@ def test_delta_engine_fuzz_matches_reference(layout):
             if op == 0:
                 n = int(rng.integers(1, 40))
                 p, b = rng.integers(0, 50, n), rng.integers(0, 2, n)
-                live[name] += _both(je, te, "subscribe_bulk", name, p,
-                                    b).tolist()
+                live[name] += _every((*refs, te), "subscribe_bulk", name, p,
+                                     b).tolist()
             elif op == 1:
                 p, broker = int(rng.integers(0, 50)), ("B1", "B2")[tick % 2]
-                live[name].append(int(_both(je, te, "subscribe", name, p,
-                                            broker)))
+                live[name].append(int(_every((*refs, te), "subscribe", name,
+                                             p, broker)))
             elif op == 2 and live[name]:
                 pick = rng.choice(live[name], min(len(live[name]), 30),
                                   replace=False)
-                _both(je, te, "remove_subscriptions", name, pick)
+                _every((*refs, te), "remove_subscriptions", name, pick)
                 live[name] = sorted(set(live[name]) - set(pick.tolist()))
             else:
-                _both(je, te, "unsubscribe_users", CRIME,
-                      rng.integers(0, 24, 4))
-                _both(je, te, "subscribe_users", CRIME,
-                      rng.integers(0, 24, 4))
-        _ingest(je, te, rng, 200, 1 + 400 * tick, match=0.4)
-        a = je.execute_all(None, timed=False, deliver=True)
+                _every((*refs, te), "unsubscribe_users", CRIME,
+                       rng.integers(0, 24, 4))
+                _every((*refs, te), "subscribe_users", CRIME,
+                       rng.integers(0, 24, 4))
+        _ingest(je, te, rng, 200, 1 + 400 * tick, match=0.4, also=(jw,))
+        over = np.asarray(je.index_state.overflowed)
+        for name, st in je.channels.items():
+            if over[st.index] and scans[name] == "bad_index":
+                dropped.setdefault(name, tick)
+        assert not np.asarray(jw.index_state.overflowed).any()
+        assert not bool(te.index_state.overflowed.any())
+        a, w = (eng.execute_all(None, timed=False, deliver=True)
+                for eng in refs)
         b = te.execute_all(None, timed=False, deliver=True)
-        _assert_tick(je, te, a, b, f"{layout} tick {tick}")
+        tag = f"{layout} tick {tick}"
+        _assert_tick(jw, te, w, b, tag)
+        _assert_counts(a, b, [n for n in a if n not in dropped], tag)
+        for name in [n for n, t in dropped.items() if t == tick]:
+            assert a[name].num_results < b[name].num_results, (tag, name)
         if tick == 0:
             first = _counters(te)
         if tick % 2:
-            _drain_round(je, te, f"{layout} tick {tick}")
+            _drain_round(jw, te, tag)
+            je.drain_spilled()
+    if layout == "compact":
+        # its seed's rows overflow both param channels' reference index
+        assert set(dropped) == set(PARAM), dropped
     assert te.maintenance.rebuilds == first[0], te.maintenance
     assert te.maintenance.patches > first[1], te.maintenance
-    je.flush_rings()
+    jw.flush_rings()
     te.flush_rings()
-    _drain_until_empty(je, te, layout)
+    _drain_until_empty(jw, te, layout)
 
 
 def test_capacity_overflow_and_out_of_band_mutation_rebuild_like_reference():

@@ -854,3 +854,236 @@ def test_two_stage_pipeline_with_flash_attention(cuda_device):
     assert fa_ops.LAUNCHES - before == 4 * 4
     assert got.is_cuda and got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# ---- deliver: the broker's convert and send stages -----------------------
+
+DELIVER_SENTINEL = -0x5A5A5A5B
+DELIVER_PAD = 64        # guard elements on each side of a buffer
+
+
+def _deliver_case(name, device, seed=0):
+    from torch_delivery_cases import CASES, case
+    return case(np.random.default_rng(seed), device=device,
+                **dict(CASES)[name])
+
+
+def _same_delivery(got, want, path=""):
+    """Every field of two FusedDelivery values, dtypes and shapes included."""
+    if got is None or want is None:
+        assert got is None and want is None, path
+    elif isinstance(got, tuple):
+        for f, g, w in zip(getattr(got, "_fields", range(len(got))), got,
+                           want):
+            _same_delivery(g, w, f"{path}.{f}")
+    else:
+        assert (got.dtype == want.dtype and got.shape == want.shape
+                and got.device == want.device and torch.equal(got, want)), path
+
+
+def _deliver_names():
+    from torch_delivery_cases import CASES
+    return [name for name, _ in CASES]
+
+
+@pytest.mark.parametrize("name", _deliver_names())
+def test_deliver_kernel_matches_plain(cuda_device, name):
+    """Every field of ``FusedDelivery`` equals the plain version's bit for
+    bit: ring-less and ring-aware (stale epochs included), group tables and
+    the identity fanout, caps below, at and above the produced totals with
+    overflow into the ring and past it into the spill streams, C = 1, 2 and
+    3, lines and notify on the 16-byte path and off it; one launch each."""
+    from repro_torch.core import broker
+    from repro_torch.kernels.deliver import ops as dl_ops
+    for seed in (0, 1, 2):
+        args = _deliver_case(name, cuda_device, seed)
+        before = (dl_ops.LAUNCHES, dl_ops.VECTOR_LAUNCHES)
+        got = broker.deliver_all(**args)
+        want = broker.deliver_plain(**args)
+        torch.cuda.synchronize()
+        _same_delivery(got, want, f"{name} seed {seed}")
+        width = got.pack.payload.shape[-1]
+        assert (dl_ops.LAUNCHES, dl_ops.VECTOR_LAUNCHES) == (
+            before[0] + 1,
+            before[1] + dl_ops.vector_ok([got.pack.payload], width))
+
+
+def test_deliver_kernel_at_the_param_group_shape(cuda_device):
+    """paper-1m's param plan-group, (2, 131,072, 10,252): the live lines,
+    the zero tail, notify and every other field equal the plain version's
+    bit for bit, on the 16-byte path."""
+    from repro_torch.core import broker
+    from repro_torch.kernels.deliver import ops as dl_ops
+    from torch_delivery_cases import PARAM_GROUP, case
+    args = case(np.random.default_rng(7), device=cuda_device, **PARAM_GROUP)
+    before = dl_ops.VECTOR_LAUNCHES
+    got = broker.deliver_all(**args)
+    torch.cuda.synchronize()
+    assert dl_ops.VECTOR_LAUNCHES == before + 1
+    assert got.pack.payload.shape == (2, 131072, 10252)
+    want = broker.deliver_plain(**args)
+    for c in range(2):
+        d = int(want.pack.delivered[c])
+        assert 1000 < d < 131072
+        assert torch.equal(got.pack.payload[c, :d], want.pack.payload[c, :d])
+        assert int(torch.count_nonzero(got.pack.payload[c, d:])) == 0
+    del want
+    torch.cuda.empty_cache()
+    _same_delivery(got, broker.deliver_plain(**args))
+
+
+def _guarded(dev, dtype, n, lead=0):
+    """A 1-D view of ``n`` elements into a buffer whose DELIVER_PAD
+    elements on each side (and ``lead`` more in front) hold a sentinel."""
+    buf = torch.empty(n + 2 * DELIVER_PAD + lead, dtype=dtype, device=dev)
+    if dtype == torch.bool:
+        buf.view(torch.uint8).fill_(0x5A)
+    else:
+        buf.fill_(DELIVER_SENTINEL)
+    return buf, buf[DELIVER_PAD + lead:DELIVER_PAD + lead + n]
+
+
+def _guards_hold(buf, n, lead=0) -> bool:
+    raw = buf.view(torch.uint8) if buf.dtype == torch.bool else buf
+    want = 0x5A if buf.dtype == torch.bool else DELIVER_SENTINEL
+    head, tail = raw[:DELIVER_PAD + lead], raw[DELIVER_PAD + lead + n:]
+    return bool((head == want).all()) and bool((tail == want).all())
+
+
+@pytest.mark.parametrize("name", ["ringless-group", "ringless-identity",
+                                  "caps-low", "ring-past-the-spill",
+                                  "wide-vector", "big-groups-overflow",
+                                  "many-tiles"])
+@pytest.mark.parametrize("lead", [0, 1])
+def test_deliver_stores_stay_in_the_output(cuda_device, monkeypatch, name,
+                                           lead):
+    """Every buffer the kernel writes (payload, notify, spill mask, the
+    spill streams, the successor ring, the counters and the scratch) is a
+    view between sentinels: no store lands outside it, and the values
+    inside match the plain version. ``lead`` 1 puts payload and notify 4 B
+    off the 16-byte boundary, onto the word path."""
+    from repro_torch.core import broker
+    from repro_torch.kernels.deliver import ops as dl_ops
+    made = []
+
+    def carve(dev, dtype, sizes):
+        views = []
+        for n in sizes:
+            buf, view = _guarded(dev, dtype, n)
+            made.append((buf, n, 0))
+            views.append(view)
+        return views
+
+    monkeypatch.setattr(dl_ops, "_carve", carve)
+    args = _deliver_case(name, cuda_device, 3)
+    want = broker.deliver_plain(**args)
+    out = {}
+    for key, t in (("payload", want.pack.payload),
+                   ("notify", want.fan.notify),
+                   ("spill_mask", want.pack.spill_mask)):
+        if key == "spill_mask" and args.get("ring") is not None:
+            continue
+        buf, view = _guarded(cuda_device, t.dtype, t.numel(), lead)
+        made.append((buf, t.numel(), lead))
+        out[key] = view.view(t.shape)
+    got = dl_ops.deliver(**args, out=out)
+    torch.cuda.synchronize()
+    _same_delivery(got, want, name)
+    for buf, n, lead_ in made:
+        assert _guards_hold(buf, n, lead_), (name, buf.dtype, n)
+
+
+def test_deliver_rejects_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels.deliver import ops as dl_ops
+    args = _deliver_case("ringless-group", cuda_device)
+    r = args["result"]
+    args["result"] = r._replace(pair_rows=r.pair_rows.to(torch.int64))
+    with pytest.raises(ValueError, match="rows"):
+        dl_ops.deliver(**args)
+    args = _deliver_case("ringless-group", cuda_device)
+    args["group_sids"] = args["group_sids"][:, :, 0]
+    with pytest.raises(ValueError, match="group table"):
+        dl_ops.deliver(**args)
+    with pytest.raises(ValueError, match="CUDA"):
+        dl_ops.deliver(**_deliver_case("ringless-group", "cpu"))
+    from torch_delivery_cases import CASES, case
+    args = case(np.random.default_rng(0), device=cuda_device,
+                **dict(dict(CASES)["ringless-group"],
+                       brokers=dl_ops.MAX_BROKERS + 1))
+    with pytest.raises(ValueError, match="brokers"):
+        dl_ops.deliver(**args)
+
+
+@pytest.mark.parametrize("name", ["ringless-group", "ring-group"])
+def test_deliver_at_the_most_brokers_it_takes(cuda_device, name):
+    """At ``MAX_BROKERS`` the per-broker tally fills 48 KB of shared memory
+    beside the kernels' own: the launch opts in to it and equals the plain
+    version."""
+    from repro_torch.core import broker
+    from repro_torch.kernels.deliver import ops as dl_ops
+    from torch_delivery_cases import CASES, case
+    args = case(np.random.default_rng(5), device=cuda_device,
+                **dict(dict(CASES)[name], brokers=dl_ops.MAX_BROKERS))
+    before = dl_ops.LAUNCHES
+    got = broker.deliver_all(**args)
+    torch.cuda.synchronize()
+    assert dl_ops.LAUNCHES == before + 1
+    assert got.pack.per_broker.shape == (args["result"].pair_valid.shape[0],
+                                         dl_ops.MAX_BROKERS)
+    _same_delivery(got, broker.deliver_plain(**args), name)
+
+
+@pytest.mark.parametrize("backend", ["oracle", "compact_pallas"])
+def test_every_delivery_of_an_engine_tick_takes_the_kernel(cuda_device,
+                                                           monkeypatch,
+                                                           backend):
+    """An engine on the card, its buffers small enough that rings and
+    spills fill: every ``deliver_all`` of its fused ticks (both
+    plan-groups, ring-aware) and of a single-channel execution (ring-less)
+    launched the kernel, and every report, delivery buffer and drain
+    equals the same engine's on the CPU."""
+    from repro_torch.core.plans import ChannelPlan, ExecutionFlags
+    from repro_torch.kernels.deliver import ops as dl_ops
+    from torch_delivery_cases import ingest, small_engine
+    calls = [0]
+    real = dl_ops.deliver
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(dl_ops, "deliver", counted)
+    plans_ = {name: ChannelPlan("bad_index", True, True, backend)
+              for name in ("TweetsAboutDrugs", "MostThreateningTweets",
+                           "TweetsAboutCrime3")}
+    engines = [small_engine(dev, 11, plans_) for dev in ("cpu", cuda_device)]
+    for eng, _ in engines:
+        eng.debug_delivery_buffers = True
+    before = dl_ops.LAUNCHES
+    for tick in range(4):
+        reps = []
+        for eng, rng in engines:
+            ingest(eng, rng, 300, 1 + 500 * tick)
+            reps.append(eng.execute_all(None, timed=False, deliver=True))
+        a, b = reps
+        assert list(a) == list(b)
+        for name in a:
+            x, y = a[name], b[name]
+            assert (x.num_results, x.num_notified) == (y.num_results,
+                                                       y.num_notified)
+            assert x.overflow == y.overflow, (tick, name)
+            for f in ("payload", "notify"):
+                gx, gy = getattr(x, f), getattr(y, f)
+                assert (gx is None) == (gy is None)
+                assert gx is None or np.array_equal(gx, gy), (tick, name, f)
+        if tick % 2:
+            da, db = (eng.drain_spilled() for eng, _ in engines)
+            assert list(da) == list(db)
+            for name in da:
+                assert da[name].stats == db[name].stats, (tick, name)
+    assert sum(r.overflow.overflow for r in b.values()) > 0
+    single = [eng.execute_channel("TweetsAboutDrugs", ExecutionFlags(),
+                                  deliver=True) for eng, _ in engines]
+    assert single[0].overflow == single[1].overflow
+    torch.cuda.synchronize()
+    assert calls[0] > 0 and dl_ops.LAUNCHES - before == calls[0]

@@ -59,11 +59,14 @@ def _engines(seed, incremental=True, **kw):
     return je, te, rng
 
 
-def _ingest(je, te, rng, n, t0, match=0.2):
+def _ingest(je, te, rng, n, t0, match=0.2, also=()):
+    """One batch into both engines, and into the reference engines
+    ``also``."""
     b = tweet_batch(rng, n, t0)
     f = drug_tweak(np.asarray(b.fields).copy(), rng, match)
     loc = (np.round(np.asarray(b.location) * 2) / 2).astype(np.float32)
-    je.ingest(JR.RecordBatch.from_numpy(f, loc))
+    for eng in (je, *also):
+        eng.ingest(JR.RecordBatch.from_numpy(f, loc))
     te.ingest(TR.RecordBatch.from_numpy(f, loc, device="cpu"))
 
 
