@@ -14,10 +14,12 @@ the cell's end-to-end metrics; with ``--trace 1`` each layer's span ends
 in a device synchronisation, a few more ticks run under
 ``torch.profiler``, and the line holds the cell's per-layer metrics (one
 reader a metric, ``bad_bench/metrics/``), the device's busy time and a
-breakdown. The numbers compared and their limits are the last lines on
-standard error and the last key of the line. Exits 2 without a CUDA card
-(or with fewer than the cell asks for) and 3 when the program loaded JAX
-or the JAX package, printing no result.
+breakdown. On standard error a ``ticks:`` line says how the window's time
+divided (tick p50, p90, p99 and maximum, the ticks over twice the median
+by quarter of the window, the seconds outside ticks); the numbers compared
+and their limits are the last lines there and the last key of the line.
+Exits 2 without a CUDA card (or with fewer than the cell asks for) and 3
+when the program loaded JAX or the JAX package, printing no result.
 """
 from __future__ import annotations
 
@@ -83,6 +85,34 @@ def end_to_end(run, bench, workload: str) -> dict:
             out[m["name"]] = {"value": values[base_name(m["name"])],
                               "unit": m["unit"]}
     return out
+
+
+def diagnosis(run) -> dict:
+    """The window's ticks at a glance: the p50, p90, p99 and maximum of
+    their wall times (ms), how many took over twice the median and in
+    which quarter of the window they started, and the seconds of the
+    window outside every tick (the harness's own work between ticks)."""
+    import numpy as np
+    w = run.window
+    ms = 1e3 * np.array([t.wall_s for t in w])
+    p50, p90, p99 = (float(v) for v in np.percentile(ms, [50, 90, 99]))
+    at = np.array([(t.start_s - run.window_t0) / run.window_s
+                   for t, m in zip(w, ms) if m > 2 * p50])
+    quarters = np.bincount(np.clip((4 * at).astype(int), 0, 3),
+                           minlength=4)
+    return {"p50_ms": p50, "p90_ms": p90, "p99_ms": p99,
+            "max_ms": float(ms.max()), "slow": len(at),
+            "slow_by_quarter": [int(q) for q in quarters],
+            "outside_s": run.window_s - float(sum(t.wall_s for t in w))}
+
+
+def diagnosis_line(d: dict, window_s: float) -> str:
+    return (f"ticks: p50 {d['p50_ms']:.3f} ms, p90 {d['p90_ms']:.3f} ms, "
+            f"p99 {d['p99_ms']:.3f} ms, max {d['max_ms']:.3f} ms; "
+            f"{d['slow']} over twice the median (by quarter of the window "
+            f"{', '.join(map(str, d['slow_by_quarter']))}); "
+            f"{d['outside_s']:.6f} s of the window's {window_s:.6f} s "
+            f"outside ticks")
 
 
 def base_name(name: str) -> str:
@@ -184,6 +214,7 @@ def measure(bench, cell, cfg, args, dev) -> int:
     print(f"window: {len(run.window)} ticks in {run.window_s:.6f} s, "
           f"{sum(t.tweets for t in run.window)} tweets, "
           f"{system.mutations(run.window)} mutations", file=sys.stderr)
+    print(diagnosis_line(diagnosis(run), run.window_s), file=sys.stderr)
     print("setup seconds by part: " + ", ".join(
         f"{k} {v:.3f}" for k, v in run.setup_parts.items()), file=sys.stderr)
     for line in check.lines_for_stderr(numbers):

@@ -74,6 +74,7 @@ class Tick:
     # calls have returned, to the closing sync: how late the period's
     # notifications reach the brokers
     notify_s: float = 0.0
+    start_s: float = 0.0                # host clock at the handover
 
 
 STAT_FIELDS = ("delivered_pairs", "spilled_pairs", "dropped_pairs",
@@ -160,6 +161,7 @@ class Run:
     profile: Optional[dict]
     flush_drops: int
     setup_parts: Dict[str, float] = dataclasses.field(default_factory=dict)
+    window_t0: float = 0.0              # host clock at the window's start
 
 
 def build(cfg: Dict, cell: Dict, seed: int, dev, parts: Dict = None):
@@ -270,7 +272,7 @@ def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
         for name, d in dr.items():
             drained[name] = stat_tuple(d.stats)
         return Tick(t2 - t0, f.shape[0], reps, drained, control, err,
-                    notify_s=t2 - t1)
+                    notify_s=t2 - t1, start_s=t0)
 
     warm = cell["warmup_ticks"]
     t = time.perf_counter()
@@ -336,7 +338,8 @@ def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
                pending_after=pending, ring_fields=ring_f,
                ring_location=ring_l, size_rows=size, memory_peak_bytes=peak,
                spans=dict(spans.total), profile=profile,
-               flush_drops=flush_drops, setup_parts=parts)
+               flush_drops=flush_drops, setup_parts=parts,
+               window_t0=t_window)
 
 
 def mutations(ticks: List[Tick]) -> int:

@@ -86,3 +86,25 @@ def test_a_metric_added_as_a_file_is_read(tmp_path, monkeypatch):
 
     assert run.per_layer(Run, bench, "any") == {
         "fixture_ticks": {"value": 3.0, "unit": "ticks"}}
+
+
+@pytest.mark.parametrize("seed", [3, 2 ** 31 + 5])
+def test_the_trending_engine_sizes_cover_the_references_largest_tick(seed):
+    """At the cell's period, the wire buffer, the notify buffer and the
+    candidate bucket hold the largest tick the reference works out over
+    every batch of the cell's pool (tick k takes batch k mod pool, so those
+    ticks are all there are)."""
+    import numpy as np
+    torch = pytest.importorskip("torch")
+    from bad_bench.reference import reference
+    from bad_bench.tests.tiny import load
+    cfg, cell = load("trending-2lang.fused")
+    e = cfg["engine"]
+    want = reference.expected(cfg, cell, seed, cell["pool"], set(),
+                              torch.device("cpu"))
+    for name in want.ticks[0]:
+        rows, _, sids, _, lines = zip(*(t[name] for t in want.ticks))
+        assert max(int(np.sum(b)) for b in lines) <= e["max_deliver_pairs"]
+        assert max(sids) <= e["max_notify"]
+        assert max(rows) <= e["max_candidates"]
+    assert cell["tweets_per_tick"] <= e["max_window"]
