@@ -51,7 +51,7 @@ def as_run(want, cfg, cell) -> system.Run:
                 # one line a (record, broker), as ``_lines`` builds them
                 results = int(rb.sum())
                 bb = pay * rb + 4 * nb_k
-            st = (results, 0, 0, notified, 0, 0, 0, 0)
+            st = (results, 0, 0, notified, 0, 0, 0, 0, 0, 0)
             reps[name] = (results, notified, bb.tolist(), st)
         ticks.append(system.Tick(0.0, cell["tweets_per_tick"], reps, {},
                                  []))

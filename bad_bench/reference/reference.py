@@ -21,10 +21,16 @@ the program's state is freed, or the CPU).
 ``narrow=True`` is the control: the same computation one precision step
 down, record fields as int16 (a narrowing cast wraps) and locations and
 distances in bfloat16, the storage a later change could be tempted to use.
+
+For a scored deployment ``plain_scores`` scores, with the plain scorer the
+configuration names (``bad_bench/reference/scorers/``), every record that
+gives a channel a pair on a sampled tick, on weights it draws from the seed
+itself.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Dict, List
 
 import numpy as np
@@ -257,3 +263,31 @@ def _place(ring_f, ring_l, lo: int, f, loc, first: int) -> None:
     slots = rows[keep] % cap
     ring_f[slots] = f[keep]
     ring_l[slots] = loc[keep]
+
+
+def plain_scores(cfg: Dict, cell: Dict, seed: int, want: Expected,
+                 dev) -> Dict[int, Dict[int, float]]:
+    """Sampled tick -> record row -> the plain scorer's score of the
+    record, for every row that gives a channel of the tick a pair. The
+    prompt is the record's field vector, regenerated from the seed; the
+    weights are the plain module's ``init`` of the seed on ``dev``."""
+    block = cfg["enrichment"]
+    mod = importlib.import_module(
+        f"bad_bench.reference.scorers.{block['plain']}")
+    model = {**block["model"], **block.get("overrides", {})}
+    weights = mod.init(model, seed, dev)
+    pool = T.Pool(cfg, cell, seed)
+    out = {}
+    for k in sorted(want.sampled):
+        keys = [np.asarray(v[0]) >> SID_BITS for v in want.sampled[k].values()]
+        rows = np.unique(np.concatenate(keys)) if keys else \
+            np.zeros(0, np.int64)
+        f, _ = pool.get(k)
+        at = rows - T.tick_rows(cfg, cell, k)
+        if len(at) and (at.min() < 0 or at.max() >= f.shape[0]):
+            raise ValueError(f"tick {k}: a pair's row lies outside the "
+                             f"tick's batch")
+        got = mod.score(weights, torch.as_tensor(f[at], device=dev),
+                        int(block["lanes"]))
+        out[k] = dict(zip(rows.tolist(), got.cpu().tolist()))
+    return out

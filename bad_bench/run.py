@@ -18,6 +18,12 @@ breakdown. On standard error a ``ticks:`` line says how the window's time
 divided (tick p50, p90, p99 and maximum, the ticks over twice the median
 by quarter of the window, the seconds outside ticks); the numbers compared
 and their limits are the last lines there and the last key of the line.
+A configuration with an ``enrichment`` block is a scored deployment: the
+program's ``LMScorer`` ranks each plan-group's candidates under a budget
+(``bad_bench/enrichment.py``), its pruned pairs count as the budget's and
+not as failures, and a ``scores:`` line says how the sampled scores lay
+against the plain scorer's. A reader that declares ``PROGRAM_SPANS``
+turns the program's own tracer on for the profiled ticks.
 Exits 2 without a CUDA card (or with fewer than the cell asks for) and 3
 when the program loaded JAX or the JAX package, printing no result.
 """
@@ -75,8 +81,7 @@ def end_to_end(run, bench, workload: str) -> dict:
         "tweets_per_s": sum(t.tweets for t in done) / secs,
         "notifications_per_s": sids / secs,
         "tick_ms_p90": 1e3 * float(np.percentile([t.wall_s for t in w], 90)),
-        "notify_ms_p90": 1e3 * float(np.percentile([t.notify_s for t in w],
-                                                   90)),
+        "notify_ms_p50": 1e3 * float(np.median([t.notify_s for t in w])),
         "setup_s": run.setup_s,
     }
     out = {}
@@ -121,13 +126,18 @@ def base_name(name: str) -> str:
     return name.split(".")[0]
 
 
+def readers(bench, workload: str) -> list:
+    """(metric entry, reader module) of each per-layer metric of the
+    cell."""
+    return [(m, importlib.import_module(
+        f"bad_bench.metrics.{base_name(m['name'])}"))
+        for m in bench["per_layer"]
+        if workload in m.get("workloads", [workload])]
+
+
 def per_layer(run, bench, workload: str) -> dict:
     out = {}
-    for m in bench["per_layer"]:
-        if workload not in m.get("workloads", [workload]):
-            continue
-        reader = importlib.import_module(
-            f"bad_bench.metrics.{base_name(m['name'])}")
+    for m, reader in readers(bench, workload):
         v = reader.read(run)
         if v is not None:
             out[m["name"]] = {"value": v, "unit": m["unit"]}
@@ -178,8 +188,13 @@ def measure(bench, cell, cfg, args, dev) -> int:
     from bad_bench.reference import reference
 
     torch.set_num_threads(min(4, torch.get_num_threads()))
+    # a reader that declares PROGRAM_SPANS reads the program's own spans
+    spans = bool(args.trace) and any(
+        getattr(r, "PROGRAM_SPANS", False)
+        for _, r in readers(bench, args.workload))
     run = system.run(cfg, cell, args.seed, args.seconds, bool(args.trace),
-                     dev, T_START, profile_fn=profiling.profile)
+                     dev, T_START, profile_fn=profiling.profile,
+                     program_spans=spans)
     found = forbidden_modules()
     if found:
         print(f"bad_bench: the process loaded {', '.join(found)}",
@@ -187,11 +202,15 @@ def measure(bench, cell, cfg, args, dev) -> int:
         return 3
     want = reference.expected(cfg, cell, args.seed, len(run.ticks),
                               set(run.sampled), dev)
-    numbers = check.compare(run, want, cfg, dev)
+    scores = (reference.plain_scores(cfg, cell, args.seed, want, dev)
+              if cfg.get("enrichment") else None)
+    numbers = check.compare(run, want, cfg, dev, scores)
     ok = check.correct(numbers)
+    # a budget's pruned pairs (ranked_*, inside dropped_*) are no failure
     failed = sum(1 for t in run.window
                  if t.error is not None or any(
-                     st[2] or st[5] for *_, st in t.reports.values()))
+                     st[2] - st[8] or st[5] - st[9]
+                     for *_, st in t.reports.values()))
     device = card(dev) if dev.type == "cuda" else {
         "platform": "cpu", "kind": "cpu", "count": 0}
     device["memory_peak_bytes"] = run.memory_peak_bytes
@@ -217,6 +236,15 @@ def measure(bench, cell, cfg, args, dev) -> int:
     print(diagnosis_line(diagnosis(run), run.window_s), file=sys.stderr)
     print("setup seconds by part: " + ", ".join(
         f"{k} {v:.3f}" for k, v in run.setup_parts.items()), file=sys.stderr)
+    if scores is not None:
+        tol = cfg["enrichment"]["tolerance"]
+        e = check.score_errors(run, scores, tol)
+        print(f"scores: {e['per_tick']:.0f} slots scored a sampled tick; "
+              f"{e['slots']} of the sampled ticks' slots hold a pair, "
+              f"against the plain scorer: largest error "
+              f"{e['largest_error']:.6g}, largest "
+              f"share of its tolerance (atol {tol['atol']}, rtol "
+              f"{tol['rtol']}) {e['largest_share']:.6g}", file=sys.stderr)
     for line in check.lines_for_stderr(numbers):
         print(line, file=sys.stderr)
     print(json.dumps(result))

@@ -13,6 +13,17 @@ program's outputs: every tick's per-channel counts and delivery stats,
 the control plane's return values, on the sampled ticks the delivered
 wire lines and sID buffers (device copies of their delivered prefixes),
 and at the end the ring's rows.
+
+A configuration with an ``enrichment`` block is a scored deployment
+(``bad_bench/enrichment.py``): ``build`` first draws the scorer's weights
+from the seed on the device, as part of ``setup_s`` (``weights`` in the
+set-up's parts: 8.2-10.0 s for qwen2-1.5b's 1.54B on an H100, where a
+second draw in the same process takes 0.13-0.20 s: the first one pays for
+something the process does once, not yet found), and attaches the
+program's ``LMScorer`` before the pre-load's catch-up; the catch-up does
+not deliver, so it does not rank, and the warm-up ticks are the first
+scored ticks. On the sampled ticks the stage's scores are recorded too.
+Without the block nothing of this runs.
 """
 from __future__ import annotations
 
@@ -79,7 +90,7 @@ class Tick:
 
 STAT_FIELDS = ("delivered_pairs", "spilled_pairs", "dropped_pairs",
                "delivered_sids", "spilled_sids", "dropped_sids",
-               "retried_pairs", "retried_sids")
+               "retried_pairs", "retried_sids", "ranked_pairs", "ranked_sids")
 
 
 def stat_tuple(s) -> tuple:
@@ -107,12 +118,17 @@ class Capture:
     lines (header and sID words, the payload words left out) and delivered
     sIDs: what ``execute_all`` hands the brokers. ``_materialize_group`` is
     wrapped on the engine instance; the copies are the delivered prefixes
-    only."""
+    only. With an enrichment stage attached its ``score`` is wrapped on the
+    instance too: on the sampled ticks each call's channel rows, record
+    rows and scores are cloned, and while ``shapes`` is a list (the
+    profiled ticks) each call's (N, S) prompt shape is appended to it."""
 
     def __init__(self, eng):
         self.eng = eng
         self.on = False
         self.ticks: Dict[int, Dict[str, tuple]] = {}
+        self.scores: Dict[int, List[tuple]] = {}
+        self.shapes: Optional[List[tuple]] = None
         self.tick = -1
         orig = eng._materialize_group
 
@@ -122,6 +138,23 @@ class Capture:
                 self._take(g, reports)
 
         eng._materialize_group = wrapped
+        if eng.enrichment is not None:
+            self._wrap_score(eng.enrichment)
+
+    def _wrap_score(self, stage) -> None:
+        orig = stage.score
+
+        def score(payload_tokens, channel_ids, sids):
+            out = orig(payload_tokens, channel_ids, sids)
+            if self.on:
+                self.scores.setdefault(self.tick, []).append(
+                    (channel_ids.clone(), sids.clone(),
+                     torch.as_tensor(out).float().clone()))
+            if self.shapes is not None:
+                self.shapes.append(tuple(payload_tokens.shape))
+            return out
+
+        stage.score = score
 
     def _take(self, g, reports) -> None:
         pw = self.eng.deliver_payload_words
@@ -140,6 +173,11 @@ class Capture:
         return {k: {n: (a.cpu().numpy(), b.cpu().numpy())
                     for n, (a, b) in v.items()}
                 for k, v in self.ticks.items()}
+
+    def host_scores(self) -> Dict[int, List[tuple]]:
+        """Sampled tick -> [(channel rows, record rows, scores)], numpy."""
+        return {k: [tuple(t.cpu().numpy() for t in call) for call in calls]
+                for k, calls in self.scores.items()}
 
 
 @dataclasses.dataclass
@@ -162,16 +200,33 @@ class Run:
     flush_drops: int
     setup_parts: Dict[str, float] = dataclasses.field(default_factory=dict)
     window_t0: float = 0.0              # host clock at the window's start
+    # scored deployments: the configuration's enrichment block; sampled
+    # tick -> the stage's calls [(channel rows, record rows, scores)]; the
+    # (N, S) prompt shape of each call of the profiled ticks; engine
+    # channel row -> channel name
+    enrichment: Optional[Dict] = None
+    scores: Dict[int, list] = dataclasses.field(default_factory=dict)
+    score_shapes: List[tuple] = dataclasses.field(default_factory=list)
+    channel_rows: Dict[int, str] = dataclasses.field(default_factory=dict)
 
 
 def build(cfg: Dict, cell: Dict, seed: int, dev, parts: Dict = None):
     """The engine of a configuration, with its subscriptions, users,
-    cohort and plans, and its ring pre-loaded."""
+    cohort and plans, its ring pre-loaded and, where the configuration
+    has an ``enrichment`` block, its scorer attached."""
     from repro_torch.core import records as R
     from repro_torch.core.engine import BADEngine
     from repro_torch.core.plans import ChannelPlan, ExecutionFlags
 
     parts = {} if parts is None else parts
+    stage = None
+    if cfg.get("enrichment"):
+        from bad_bench import enrichment
+        t = time.perf_counter()
+        # before the engine's buffers, so the float32 draw sets no peak
+        stage = enrichment.stage(cfg["enrichment"], seed, dev)
+        sync(dev)
+        parts["weights"] = time.perf_counter() - t
     t = time.perf_counter()
     e = cfg["engine"]
     eng = BADEngine(dataset_capacity=e["dataset_capacity"],
@@ -210,6 +265,8 @@ def build(cfg: Dict, cell: Dict, seed: int, dev, parts: Dict = None):
     # assigned plans' stream buckets and rings untouched
     sync(dev)
     parts["preload"] = time.perf_counter() - t
+    if stage is not None:
+        eng.set_enrichment(stage)
     t = time.perf_counter()
     eng.execute_all(ExecutionFlags.fully_optimized(), deliver=False,
                     timed=False)
@@ -219,9 +276,11 @@ def build(cfg: Dict, cell: Dict, seed: int, dev, parts: Dict = None):
 
 
 def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
-        t_start: float, profile_fn=None) -> Run:
+        t_start: float, profile_fn=None, program_spans: bool = False) -> Run:
     """Build, warm up, measure ``seconds`` of ticks, profile a few more
-    when tracing, drain to empty, and read back what the checks need."""
+    when tracing (with the program's own spans on where
+    ``program_spans``), drain to empty, and read back what the checks
+    need."""
     from repro_torch.core import records as R
 
     parts = {"start": time.perf_counter() - t_start}
@@ -305,9 +364,11 @@ def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
         profiled = int(min(max(3, math.ceil(1.0 / max(mean, 1e-6))), 24))
         kept = dict(spans.total)      # the window's spans stay the window's
         spans.on = spans.annotate = True
+        capture.shapes = []
+        more = {"program_spans": True} if program_spans else {}
         profile = profile_fn(lambda: [ticks.append(one_tick(k + i))
                                       for i in range(profiled)],
-                             dev, profiled)
+                             dev, profiled, **more)
         spans.on = spans.annotate = False
         spans.total = kept
     # after the window: re-deliver whatever waits in the rings and the
@@ -330,6 +391,8 @@ def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
     sampled_host = capture.host()
     size = eng.size_host
     flush_drops = int(eng.ring_flush_drops)
+    rows = {st.index: name for name, st in eng.channels.items()}
+    scored, shapes = capture.host_scores(), capture.shapes or []
     del eng, capture
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -339,7 +402,8 @@ def run(cfg: Dict, cell: Dict, seed: int, seconds: float, trace: bool, dev,
                ring_location=ring_l, size_rows=size, memory_peak_bytes=peak,
                spans=dict(spans.total), profile=profile,
                flush_drops=flush_drops, setup_parts=parts,
-               window_t0=t_window)
+               window_t0=t_window, enrichment=cfg.get("enrichment"),
+               scores=scored, score_shapes=shapes, channel_rows=rows)
 
 
 def mutations(ticks: List[Tick]) -> int:

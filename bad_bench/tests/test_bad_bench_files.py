@@ -108,3 +108,31 @@ def test_the_trending_engine_sizes_cover_the_references_largest_tick(seed):
         assert max(sids) <= e["max_notify"]
         assert max(rows) <= e["max_candidates"]
     assert cell["tweets_per_tick"] <= e["max_window"]
+
+
+# a width may never be cut (the model-configs guide, section 4)
+WIDTHS = {"d_model", "d_ff", "head_dim", "n_heads", "n_kv_heads",
+          "moe_top_k", "ssm_state", "ssm_expand", "ssm_conv"}
+
+
+@pytest.mark.parametrize("c", BENCH["configs"], ids=lambda c: c["name"])
+def test_an_enrichment_block_names_its_cut_and_its_plain_scorer(c):
+    """Where a configuration has an ``enrichment`` block: each overridden
+    key is in its ``reduced`` and ``BENCHMARK.json``'s, no width is cut,
+    its plain scorer is a module of ``reference/scorers/`` and its
+    tolerance gives its reason."""
+    import importlib
+    cfg = json.loads((ROOT / c["file"]).read_text())
+    block = cfg.get("enrichment")
+    if block is None:
+        return
+    over = set(block.get("overrides", {}))
+    assert over <= set(cfg["reduced"]) and over <= set(c["reduced"])
+    assert not over & WIDTHS
+    plain = importlib.import_module(
+        f"bad_bench.reference.scorers.{block['plain']}")
+    assert all(callable(getattr(plain, f))
+               for f in ("init", "score", "flops"))
+    tol = block["tolerance"]
+    assert tol["atol"] >= 0 and tol["rtol"] >= 0 and tol["why"]
+    assert int(block["budget"]) > 0 and int(block["lanes"]) > 0

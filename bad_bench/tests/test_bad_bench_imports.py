@@ -64,3 +64,23 @@ def test_the_run_refuses_a_process_that_loaded_jax(monkeypatch):
     assert run.forbidden_modules() == ["jax"]
     monkeypatch.setitem(sys.modules, "repro_torch_like", object())
     assert run.forbidden_modules() == ["jax"]
+
+
+SCORERS = sorted(p for p in (ROOT / "bad_bench" / "reference" / "scorers")
+                 .glob("*.py") if p.stem != "__init__")
+
+
+@pytest.mark.parametrize("path", SCORERS, ids=lambda p: p.stem)
+def test_each_plain_scorer_loads_nothing_of_the_program(path):
+    """A plain scorer imports neither the program nor JAX, at its top or
+    inside a function, and loading it loads neither."""
+    pytest.importorskip("torch")
+    tops = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            tops |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            tops.add((node.module or "").split(".")[0])
+    assert not tops & (FORBIDDEN | {"repro_torch"}), tops
+    got = _loaded(f"import bad_bench.reference.scorers.{path.stem}")
+    assert "repro_torch" not in got and not got & FORBIDDEN

@@ -36,3 +36,31 @@ def tiny(cell_name: str):
                 w["user_churn"] = 8
         cell["cohort"]["users"] = 150
     return cfg, cell
+
+
+# qwen2-1.5b's plain settings as the port's registry holds them (the
+# published rms_norm_eps is 1e-6; the port's dense family takes 1e-5)
+QWEN2_1_5B = {"vocab_size": 151936, "d_model": 1536, "n_layers": 28,
+              "n_heads": 12, "n_kv_heads": 2, "head_dim": 128, "d_ff": 8960,
+              "rope_theta": 1e6, "norm_eps": 1e-5, "qkv_bias": True,
+              "tie_embeddings": True, "param_dtype": "bfloat16"}
+# the reduced dense model of the CPU tests: every width cut, float32
+REDUCED = {"d_model": 64, "n_heads": 4, "n_kv_heads": 2, "d_ff": 128,
+           "vocab_size": 256, "n_layers": 2, "superlayer_repeat": 2,
+           "head_dim": 16, "param_dtype": "float32",
+           "compute_dtype": "float32"}
+TOLERANCE = {"atol": 1e-5, "rtol": 1e-4,
+             "why": "a float32 program against the float32 plain forward: "
+                    "sums in another order only"}
+
+
+def tiny_scored(cell_name: str = "paper-1m.fused", budget: int = 32,
+                lanes: int = 16):
+    """A tiny copy with an ``enrichment`` block: the reduced dense scorer
+    at ``budget`` pairs a channel an execution."""
+    cfg, cell = tiny(cell_name)
+    cfg["enrichment"] = {"arch": "qwen2-1.5b", "model": dict(QWEN2_1_5B),
+                         "overrides": dict(REDUCED), "budget": budget,
+                         "lanes": lanes, "plain": "dense",
+                         "tolerance": dict(TOLERANCE)}
+    return cfg, cell
