@@ -1234,30 +1234,45 @@ def deliver_calls(dev, workload: str) -> list:
 
 
 def same_delivery(got, want) -> bool:
-    """Every field of two ``FusedDelivery`` values equal, bit for bit."""
+    """Two ``FusedDelivery`` values equal bit for bit: each channel's first
+    ``delivered`` wire lines and every other field (the kernel leaves the
+    lines past that count as the buffer held them)."""
+    pay, ref = got.pack.payload, want.pack.payload
+    if pay.dtype != ref.dtype or pay.shape != ref.shape:
+        return False
+    if not all(bool(torch.equal(pay[c, :d], ref[c, :d]))
+               for c, d in enumerate(want.pack.delivered.tolist())):
+        return False
+    return same_fields(got._replace(pack=got.pack._replace(payload=None)),
+                       want._replace(pack=want.pack._replace(payload=None)))
+
+
+def same_fields(got, want) -> bool:
+    """Every field of two values (tuples field by field) equal, bit for
+    bit."""
     if got is None or want is None:
         return got is None and want is None
     if isinstance(got, tuple):
-        return all(same_delivery(g, w) for g, w in zip(got, want))
+        return all(same_fields(g, w) for g, w in zip(got, want))
     return (got.dtype == want.dtype and got.shape == want.shape
             and bool(torch.equal(got, want)))
 
 
 def deliver_bytes(a: dict, want) -> int:
     """The bytes one ``deliver`` call must move: every output written once
-    (the wire lines, notify, the spill streams, the successor ring and, ring-
-    less, the spill mask) and each input read once where it is needed (the
-    validity flags; row, target, member count and broker of a valid pair;
-    the ring; the sID row of each live line)."""
+    (the live wire lines, notify in full, the spill streams, the successor
+    ring and, ring-less, the spill mask) and each input read once where it
+    is needed (the validity flags; row, target, member count and broker of
+    a valid pair; the ring; the sID row of each live line)."""
     result, ring = a["result"], a["ring"]
     C = result.pair_valid.shape[0]
     P = result.pair_valid[0].numel()
-    max_pairs, width = want.pack.payload.shape[1:]
+    width = want.pack.payload.shape[2]
     S = a["group_sids"].shape[-1]
     W = 0 if ring is None else ring.window
     nvalid = int(result.pair_valid.sum())
     lines = int(want.pack.delivered.sum())
-    out = (4 * C * max_pairs * width + 4 * C * a["max_notify"]
+    out = (4 * lines * width + 4 * C * a["max_notify"]
            + C * a["spill_cap"] * (13 + 9) + 16 * C * W
            + (C * P if ring is None else 0))
     inp = (C * P + 8 * nvalid + (4 * nvalid if S else 0)
@@ -1274,7 +1289,8 @@ def deliver_floor(a: dict, want):
     tiles = -(-a["result"].pair_valid[0].numel() // dl_ops.TILE)
     fan, line, threads, _, _ = dl_ops.grid(
         C, payload.shape[1], payload.shape[2], want.fan.notify.shape[1],
-        dl_ops.vector_ok([payload], payload.shape[2]))
+        dl_ops.vector_ok([payload], payload.shape[2]),
+        dl_ops.sm_count(payload.device))
     tile_blocks = min(C * tiles, dl_ops.MAX_BLOCKS)
     calls = [floor_call(tile_blocks, threads),
              floor_call(C, dl_ops.SCAN_THREADS),
@@ -1287,9 +1303,20 @@ def deliver_floor(a: dict, want):
     return launch
 
 
+def deliver_full_call(dev) -> dict:
+    """A ``deliver_all`` call at the param plan-group's shape with every
+    wire line live (``torch_delivery_cases.PARAM_GROUP_FULL``): the walk
+    writes the whole buffer."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_delivery_cases import PARAM_GROUP_FULL, case
+    return case(np.random.default_rng(DELIVER_SEED), device=dev,
+                **PARAM_GROUP_FULL)
+
+
 def measure_deliver(a: dict) -> dict:
-    """One ``deliver_all`` call of a cell: the kernel against the plain
-    version on every field of ``FusedDelivery``, bit for bit, then timed as
+    """One ``deliver_all`` call: the kernel against the plain version
+    (``same_delivery``: the delivered wire lines and every other field of
+    ``FusedDelivery``, bit for bit), then timed as
     ``measure`` times an entry (``ms`` a CUDA graph of calls, the four
     launches alone; ``wrapper_ms`` and ``plain_ms`` by CUDA events;
     ``floor_ms`` the empty kernel on the four grids) beside ``bound_ms``,
@@ -1325,6 +1352,17 @@ def measure_deliver(a: dict) -> dict:
              floor_ms=graph_ms(floor, iters))
     torch.cuda.empty_cache()
     return k
+
+
+def print_deliver(k: dict, where: str) -> None:
+    print(f"[kernel] deliver {k['shape']} ({where}; {k['live_lines']} live "
+          f"lines, {k['live_sids']} sIDs): {k['ms']:.4f} ms (graph of "
+          f"wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, plain "
+          f"{k['plain_ms']:.4f} ms, floor {k['floor_ms']:.4f} ms (empty "
+          f"kernel, the four grids), bound {k['bound_ms']:.4f} ms (bytes, "
+          f"{k['bound_bytes']} B), {k['path']} path, "
+          f"{'equal to' if k['equal'] else 'DIFFERENT from'} the plain "
+          f"version bit for bit")
 
 
 def measure(case: dict, shape: str) -> dict:
@@ -4547,27 +4585,22 @@ def main() -> int:
         calls = deliver_calls(dev, workload)
         assert len(calls) == len(groups), (workload, len(calls))
         for group, a in zip(groups, calls):
-            k = measure_deliver(a)
-            rows.append(k)
-            print(f"[kernel] deliver {k['shape']} ({workload}, {group} "
-                  f"plan-group; {k['live_lines']} live lines, "
-                  f"{k['live_sids']} sIDs): {k['ms']:.4f} ms (graph of "
-                  f"wrapper calls), wrapper {k['wrapper_ms']:.4f} ms, plain "
-                  f"{k['plain_ms']:.4f} ms, floor {k['floor_ms']:.4f} ms "
-                  f"(empty kernel, the four grids), bound "
-                  f"{k['bound_ms']:.4f} ms (bytes, {k['bound_bytes']} B), "
-                  f"{k['path']} path, "
-                  f"{'equal to' if k['equal'] else 'DIFFERENT from'} the "
-                  f"plain version bit for bit")
+            rows.append(measure_deliver(a))
+            print_deliver(rows[-1], f"{workload}, {group} plan-group")
         del calls
         torch.cuda.empty_cache()
+    rows.append(measure_deliver(deliver_full_call(dev)))
+    print_deliver(rows[-1], "the param plan-group's shape, every line live")
+    torch.cuda.empty_cache()
     assert all(k["equal"] for k in rows), rows
-    assert [k["path"] for k in rows] == ["vector", "scalar", "vector"], rows
+    assert [k["path"] for k in rows] == ["vector", "scalar", "vector",
+                                         "vector"], rows
     assert fp["launches"]["deliver"] == 2 * fp["ticks"] == \
         2 * fp["launches"]["deliver_vector"], fp["launches"]
-    param, spatial, trending = ({key: k[key] for key in (
+    param, spatial, trending, full = ({key: k[key] for key in (
         "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
         "shape", "path", "live_lines", "live_sids")} for k in rows)
+    assert full["live_lines"] == 2 * 131072, full
     entries.append({
         "name": "deliver", "route": "cuda",
         "source": "src/repro_torch/csrc/deliver.cu",
@@ -4582,7 +4615,9 @@ def main() -> int:
         "paper1m_spatial": dict(spatial, cell="paper-1m.fused, spatial "
                                 "plan-group"),
         "trending": dict(trending, cell="trending-2lang.fused, param "
-                         "plan-group")})
+                         "plan-group"),
+        "every_line_live": dict(full, cell="the param plan-group's shape, "
+                                "every line live")})
     # last, so that the profiler's tracing touches no timed phase
     kernels = one_kernel_per_decode_call(dev)
     print(f"[parity] one kernel a flash_decode call (torch.profiler): "

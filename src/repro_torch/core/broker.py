@@ -12,19 +12,21 @@ their *work* is real and measurable, mirroring Table 2's three stages:
 ``pack_payloads_all`` / ``fanout_sids_all`` / ``deliver_all`` run every
 channel's convert+send over a stacked leading channel axis C (the
 single-channel engine calls them at C == 1). On a card ``deliver_all`` is
-the hand-written ``deliver`` kernel (``kernels/deliver``: every output word
-written once, four launches); what follows describes the plain version
-``deliver_plain``, which the CPU and ``meta`` run. It is gather-formulated:
-each output slot binary-searches its source pair in per-channel prefix sums
-(batched ``torch.searchsorted(..., right=True)`` over (C, P) rows), so the
-work is proportional to the delivery capacity, not to the padded pair grid.
-Whatever misses a delivery buffer lands, with its channel identity, in the
-device-resident ``RetryRing`` when the caller passes one (re-packed and
-re-delivered ahead of the fresh result on the NEXT call, epoch-masked
-staleness) and past its window in flat channel-major spill streams for the
-engine's host-side SpillQueue. A ring-aware call builds its successor ring
-as new tensors and never writes to the ring it was given, so a caller may
-discard a run and present the same ring again.
+the hand-written ``deliver`` kernel (``kernels/deliver``: four launches,
+every output word written once but the wire lines past each channel's
+delivered count, which it leaves as they were); what follows describes the
+plain version ``deliver_plain``, which the CPU and ``meta`` run. It is
+gather-formulated: each output slot binary-searches its source pair in
+per-channel prefix sums (batched ``torch.searchsorted(..., right=True)``
+over (C, P) rows), so the work is proportional to the delivery capacity,
+not to the padded pair grid. Whatever misses a delivery buffer lands, with
+its channel identity, in the device-resident ``RetryRing`` when the caller
+passes one (re-packed and re-delivered ahead of the fresh result on the
+NEXT call, epoch-masked staleness) and past its window in flat
+channel-major spill streams for the engine's host-side SpillQueue. A
+ring-aware call builds its successor ring as new tensors and never writes
+to the ring it was given, so a caller may discard a run and present the
+same ring again.
 
 ``pack_payloads`` / ``fanout_sids`` are the per-channel convert and send
 stages (one channel's result, scatter-formulated as in the reference);
@@ -142,7 +144,10 @@ def resolve_pair_sids(table: np.ndarray, targets: np.ndarray) -> np.ndarray:
 
 
 class PackedDelivery(NamedTuple):
-    """Stacked convert-stage output (leading channel axis C)."""
+    """Stacked convert-stage output (leading channel axis C). Channel c's
+    wire lines are ``payload[c, :delivered[c]]``; the lines after them are
+    zeros from the plain version and left as the buffer held them by the
+    card's kernel, so no reader looks past them."""
 
     payload: torch.Tensor     # (C, max_pairs, width) int32 wire buffers
     delivered: torch.Tensor   # (C,) int32 pairs written
@@ -291,6 +296,16 @@ def payload_notifications(payload: np.ndarray, delivered: int,
     rows = np.broadcast_to(buf[:, :1].astype(np.int64), sids.shape)
     live = sids >= 0
     return np.stack([rows[live], sids[live]], axis=1)
+
+
+def clear_dead_lines(payload: np.ndarray, delivered) -> np.ndarray:
+    """Zero, in place, each channel's wire lines past its delivered count
+    in a host copy of ``PackedDelivery.payload`` ((C, max_pairs, width)),
+    so that a buffer the card's kernel left there reads as the plain
+    version's. Returns ``payload``."""
+    for c, d in enumerate(np.asarray(delivered).reshape(-1).tolist()):
+        payload[c, max(int(d), 0):] = 0
+    return payload
 
 
 def _take(table: torch.Tensor, *idx: torch.Tensor) -> torch.Tensor:
@@ -508,7 +523,10 @@ def deliver_all(result: ChannelResult, group_sids: torch.Tensor,
 
     A CUDA tensor launches the ``deliver`` kernel (``kernels/deliver``);
     a ``cpu`` or ``meta`` tensor runs the plain version, ``deliver_plain``.
-    Both give the same ``FusedDelivery``, bit for bit."""
+    Both give the same ``FusedDelivery``, bit for bit, but for the wire
+    lines past each channel's ``pack.delivered`` count: zeros from the plain
+    version, left as the buffer held them by the kernel (``PackedDelivery``).
+    """
     args = (result, group_sids, payload_words, max_pairs, max_notify,
             spill_cap, caps_pairs, caps_notify, target_brokers, num_brokers,
             counts, ring, epochs)

@@ -74,8 +74,9 @@ from repro_torch.core import subscriptions as subs
 from repro_torch.core import trace
 from repro_torch.core.broker import (BrokerRegistry, DeliveryStats,
                                      FusedDelivery, RetryRing, RingCounters,
-                                     deliver_all, empty_ring, fanout_sids,
-                                     pack_payloads, resolve_pair_sids)
+                                     clear_dead_lines, deliver_all,
+                                     empty_ring, fanout_sids, pack_payloads,
+                                     resolve_pair_sids)
 from repro_torch.core.channel import ChannelSpec
 from repro_torch.core.predicates import (EQ, CompiledConditions,
                                          compile_conditions,
@@ -2128,6 +2129,9 @@ class BADEngine:
                     with trace.span("read.buffers"):
                         pay = dlv.pack.payload.cpu().numpy()
                         noti = dlv.fan.notify.cpu().numpy()
+                    # the card leaves the lines past each channel's count as
+                    # they were; the report reads as the plain version's
+                    clear_dead_lines(pay, h["pack_delivered"])
                 share = wall / max(len(g.param_chs) + len(g.spatial_chs), 1)
                 for i, st in enumerate(chs):
                     reports[st.spec.name] = ExecutionReport(

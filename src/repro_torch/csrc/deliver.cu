@@ -11,18 +11,20 @@
 //   the first min(live, cap) pairs are the wire lines of the pack buffer
 //   (C, max_pairs, width) = [row, target, members, payload_words, the
 //   target's sID row (the target itself on the identity fanout),
-//   payload_words copies of row], the lines after them zeros; the member
-//   sIDs of the same order fill notify (C, max_notify) up to its cap, -1
-//   after; what overflows a cap fills the successor ring's window, then the
-//   spill window, and past both is counted. Per-broker counts, the produced
-//   and delivered counts, the ring's counters and the spill totals come
-//   with them.
-// Bound on the H100: memory (3.35 TB/s). The wire buffers are written in
-//   full every call: at paper-1m's param plan-group (2, 131,072, 10,252)
-//   int32, 10.75 GB, and notify (C, 2^25) int32, while the live load is a
-//   few thousand lines and some 24M sIDs. Every output word is written
-//   once; the inputs are read where a pair is valid, apart from the
-//   (C, P) validity flags, which two passes read.
+//   payload_words copies of row]; the lines after a channel's delivered
+//   count are left as the buffer held them (no reader looks past that
+//   count; the plain version writes zeros there); the member sIDs of the
+//   same order fill notify (C, max_notify) up to its cap, -1 after; what
+//   overflows a cap fills the successor ring's window, then the spill
+//   window, and past both is counted. Per-broker counts, the produced and
+//   delivered counts, the ring's counters and the spill totals come with
+//   them.
+// Bound on the H100: memory (3.35 TB/s). Written: the live wire lines (at
+//   paper-1m's param plan-group a few thousand of its (2, 131,072, 10,252)
+//   int32 capacity, some 0.24 GB), notify in full ((C, 2^25) int32, 0.27
+//   GB), the windows and counters; read: the (C, P) validity flags, which
+//   two passes read, the other inputs where a pair is valid, and each live
+//   line's sID row.
 // Design, four launches:
 //   1. count: a block a tile of 4,096 pairs (16 flags a thread, one 16-B
 //      load where the flags allow) sums the tile's valid pairs and their
@@ -38,13 +40,17 @@
 //      brokers in shared memory with one global add a block, writes the
 //      members of a pair with at most kSmall of them itself, and queues a
 //      pair with more as a work item.
-//   4. write: the wire lines, a block a line (several lines a block where a
-//      line is narrow), a dead line pure streaming stores of zeros (no read,
-//      st.global.cs so that they do not evict the tables from L2), 16-byte
-//      stores where the width and the buffer allow (vector_lines); ahead of
-//      them blocks that fill notify's tail with -1 and copy each queued
-//      pair's members, a block a pair, so that the send stage reads in
-//      proportion to the load.
+//   4. write: the live wire lines, flattened over the channels (each
+//      channel's delivered count, read on the device), kLineBlocksPerSm
+//      blocks an SM that take them from a counter as they go: a block a
+//      line (several lines a block where a line is narrow), 16-byte stores
+//      where the width and the buffer allow (vector_lines). A block that
+//      finishes early takes the next line: a fixed grid stride keeps the
+//      blocks marching in step, and on an H100 ran a full buffer some 36%
+//      slower than one block a line. Ahead of them blocks that
+//      fill notify's tail with -1 (st.global.cs, so that they do not evict
+//      the tables from L2) and copy each queued pair's members, a block a
+//      pair, so that the send stage reads in proportion to the load.
 //   Offsets into the wire buffer pass 2^31 words, so every index is 64-bit.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -61,9 +67,11 @@ constexpr int64_t kTile = kThreads * kTileItems;
 constexpr int32_t kSmall = 32;      // members a pair's own thread writes
 constexpr int64_t kFanBlocks = 1024;
 constexpr int64_t kMaxBlocks = 0x7fffffff;
+// blocks of the line walk an SM: the card's resident blocks of 256 threads
+constexpr int kLineBlocksPerSm = 8;
 
 // rows of the per-channel counters, each C wide; after them the queued
-// item count and the two spill totals
+// item count, the two spill totals and the line walk's counter
 enum Stat {
   kDelivP, kProdP, kDelivS, kProdS, kStale, kRingP, kRingS, kNRing,
   kOvP, kOvS, kCapP, kSidBase, kNStat
@@ -108,7 +116,7 @@ struct Args {
   int4* items;                 // (items_cap) channel, target, members, rank
   int64_t C, P, T, S, Tc, Tb, B, W, spill_cap, max_pairs, max_notify, width,
       payload_words, items_cap, tiles, identity, ring, vector_valid,
-      vector_lines, vector_notify;
+      vector_lines, vector_notify, sms;
 };
 
 __device__ __forceinline__ int64_t clamp_index(int64_t i, int64_t n) {
@@ -291,7 +299,10 @@ __global__ void __launch_bounds__(kScanThreads) scan_kernel(const Args a) {
   const int32_t cap_p = cap_of(a.caps_p, c, a.max_pairs);
   const int32_t cap_n = cap_of(a.caps_n, c, a.max_notify);
   for (int64_t b = tid; b < a.B; b += kScanThreads) tally[b] = 0;
-  if (c == 0 && tid == 0) a.stats[kNStat * a.C] = 0;  // queued items
+  if (c == 0 && tid == 0) {
+    a.stats[kNStat * a.C] = 0;      // queued items
+    a.stats[kNStat * a.C + 3] = 0;  // the line walk's counter
+  }
 
   // tile offsets: each thread a run of consecutive tiles
   const int64_t per = (a.tiles + kScanThreads - 1) / kScanThreads;
@@ -557,24 +568,35 @@ __device__ __forceinline__ int32_t line_word(const Args& a, int64_t w,
   return row;
 }
 
-__device__ void line_blocks(const Args& a, int64_t bid, int64_t nb, int span,
-                            int per_block) {
+// the wire lines channel c delivered, clamped to its buffer
+__device__ __forceinline__ int64_t live_lines(const Args& a, int64_t c) {
+  const int64_t d = stat_of(a, kDelivP, c);
+  return d < 0 ? 0 : (d > a.max_pairs ? a.max_pairs : d);
+}
+
+// the live lines of every channel, one flat index over them (channel 0's
+// first), per_block lines at a time from the counter
+__device__ void line_blocks(const Args& a, int span, int per_block) {
+  __shared__ int32_t next;
   const int sub = threadIdx.x / span, u0 = threadIdx.x % span;
-  if (sub >= per_block) return;
-  const int64_t lines = a.C * a.max_pairs;
   const int64_t units = a.vector_lines ? a.width / 4 : a.width;
-  for (int64_t L = bid * per_block + sub; L < lines; L += nb * per_block) {
-    const int64_t c = L / a.max_pairs, q = L - c * a.max_pairs;
-    int32_t* line = a.payload + L * a.width;
-    if (q >= stat_of(a, kDelivP, c)) {  // dead line: zeros, no read
-      if (a.vector_lines) {
-        for (int64_t u = u0; u < units; u += span)
-          __stcs(reinterpret_cast<int4*>(line) + u, make_int4(0, 0, 0, 0));
-      } else {
-        for (int64_t u = u0; u < units; u += span) __stcs(line + u, 0);
-      }
-      continue;
+  int64_t total = 0;
+  for (int64_t k = 0; k < a.C; ++k) total += live_lines(a, k);
+  for (;;) {
+    if (threadIdx.x == 0) next = atomicAdd(a.stats + kNStat * a.C + 3, 1);
+    __syncthreads();
+    const int64_t L0 = static_cast<int64_t>(next) * per_block;
+    __syncthreads();
+    if (L0 >= total) return;
+    const int64_t L = L0 + sub;
+    if (sub >= per_block || L >= total) continue;
+    int64_t c = 0, base = 0;
+    while (L >= base + live_lines(a, c)) {
+      base += live_lines(a, c);
+      ++c;
     }
+    const int64_t q = L - base;
+    int32_t* line = a.payload + (c * a.max_pairs + q) * a.width;
     const int2 src = a.slots[c * a.max_pairs + q];
     const int32_t row = src.x, t = src.y;
     const int32_t members = a.identity ? 1 : members_of(a, c, t);
@@ -601,7 +623,7 @@ __global__ void __launch_bounds__(kThreads)
   if (blockIdx.x < fan_nb)
     fan_blocks(a, blockIdx.x, fan_nb);
   else
-    line_blocks(a, blockIdx.x - fan_nb, gridDim.x - fan_nb, span, per_block);
+    line_blocks(a, span, per_block);
 }
 
 bool aligned16(const void* p) {
@@ -615,20 +637,21 @@ unsigned capped(int64_t blocks) {
 
 // The write kernel's grid, as ops.grid computes it: fan blocks (at least
 // one, at most kFanBlocks, one a 1,024 words of notify) and line blocks
-// (per_block lines a block, span threads a line). out: fan, line, span,
+// (kLineBlocksPerSm an SM, fewer where the buffer holds fewer line blocks;
+// per_block lines a block, span threads a line). out: fan, line, span,
 // per_block.
 void write_grid(int64_t channels, int64_t max_pairs, int64_t width,
-                int64_t max_notify, bool vector, int64_t* out) {
+                int64_t max_notify, bool vector, int64_t sms, int64_t* out) {
   const int64_t units = vector ? width / 4 : width;
   const int64_t span = units < kThreads ? (units > 0 ? units : 1) : kThreads;
   const int64_t per_block = kThreads / span;
   int64_t fan = (channels * max_notify + 4 * kThreads - 1) / (4 * kThreads);
   fan = fan < 1 ? 1 : (fan > kFanBlocks ? kFanBlocks : fan);
   const int64_t lines = channels * max_pairs;
-  int64_t line = (lines + per_block - 1) / per_block;
-  if (line > kMaxBlocks - fan) line = kMaxBlocks - fan;
+  const int64_t line = (lines + per_block - 1) / per_block;
+  const int64_t card = sms * kLineBlocksPerSm;
   out[0] = fan;
-  out[1] = line;
+  out[1] = line < card ? line : card;
   out[2] = span;
   out[3] = per_block;
 }
@@ -646,7 +669,8 @@ extern "C" int deliver_launch(const void* args, void* stream) {
   const Args& a = *static_cast<const Args*>(args);
   const auto st = static_cast<cudaStream_t>(stream);
   if (a.C <= 0 || a.P <= 0 || a.B < 0 || a.B > 12288 || a.W < 0 ||
-      a.spill_cap < 0 || a.max_pairs < 0 || a.max_notify < 0)
+      a.spill_cap < 0 || a.max_pairs < 0 || a.max_notify < 0 || a.sms <= 0 ||
+      a.sms > 4096)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((a.vector_valid &&
        (a.P % 16 != 0 || !aligned16(a.valid) ||
@@ -680,7 +704,7 @@ extern "C" int deliver_launch(const void* args, void* stream) {
   if (e != cudaSuccess) return static_cast<int>(e);
   int64_t g[4];
   write_grid(a.C, a.max_pairs, a.width, a.max_notify, a.vector_lines != 0,
-             g);
+             a.sms, g);
   write_kernel<<<static_cast<unsigned>(g[0] + g[1]), kThreads, 0, st>>>(
       a, g[0], static_cast<int>(g[2]), static_cast<int>(g[3]));
   return static_cast<int>(cudaGetLastError());

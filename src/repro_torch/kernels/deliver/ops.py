@@ -5,9 +5,14 @@ capture and the retry ring, on a CUDA card.
 ``broker.deliver_all`` picks the version by the tensor's device: a CUDA
 tensor comes here (``deliver`` launches the kernel, or raises), a ``cpu``
 or ``meta`` tensor runs the plain version, ``broker.deliver_plain``. Both
-give the same ``FusedDelivery`` bit for bit: everything is integer.
+give the same ``FusedDelivery`` bit for bit (everything is integer), but
+for the wire lines past each channel's delivered count: the kernel leaves
+them as the buffer held them, where the plain version writes zeros. No
+reader looks past a channel's ``delivered`` lines.
 
-The kernel writes the wire lines with 16-byte stores where ``vector_ok``
+The kernel writes only the live wire lines, handed out from a counter over
+every channel to a grid sized to the card (``LINE_BLOCKS_PER_SM`` blocks an
+SM), not to the buffer; it writes them with 16-byte stores where ``vector_ok``
 holds for the payload buffer and the line width, a word a thread otherwise;
 notify's tail likewise; the validity flags are read 16 to a load where
 ``P % 16 == 0`` and the flags start on a 16-byte boundary. A group table
@@ -36,11 +41,13 @@ THREADS = 256       # threads a block of count, scatter, write (kThreads)
 SCAN_THREADS = 1024  # threads of scan's block a channel (kScanThreads)
 TILE = 4096         # pairs a block of the count and scatter kernels
 FAN_BLOCKS = 1024   # at most this many blocks fill notify and copy members
+LINE_BLOCKS_PER_SM = 8  # blocks of the line walk an SM (kLineBlocksPerSm)
 SMALL = 32          # a pair with more members is copied by a block of its own
 MAX_BLOCKS = 2 ** 31 - 1
 MAX_BROKERS = 12288  # the per-broker tally lives in shared memory
 I32 = torch.int32
-# rows of the kernel's per-channel counters (csrc/deliver.cu Stat)
+# rows of the kernel's per-channel counters (csrc/deliver.cu Stat); after
+# them the queued items, the two spill totals and the line walk's counter
 (DELIV_P, PROD_P, DELIV_S, PROD_S, STALE, RING_P, RING_S, N_RING, OV_P, OV_S,
  CAP_P, SID_BASE, N_STAT) = range(13)
 
@@ -59,7 +66,7 @@ class _Args(ctypes.Structure):
             "C", "P", "T", "S", "Tc", "Tb", "B", "W", "spill_cap",
             "max_pairs", "max_notify", "width", "payload_words", "items_cap",
             "tiles", "identity", "ring", "vector_valid", "vector_lines",
-            "vector_notify")])
+            "vector_notify", "sms")])
 
 
 def vector_ok(tensors: Sequence[torch.Tensor], words: int) -> bool:
@@ -71,20 +78,28 @@ def vector_ok(tensors: Sequence[torch.Tensor], words: int) -> bool:
 
 
 def grid(channels: int, max_pairs: int, width: int, max_notify: int,
-         vector: bool) -> Tuple[int, int, int, int, int]:
-    """The write kernel's launch, as the C entry sizes it: (fan blocks,
-    line blocks, threads a block, threads a line, lines a block). A line
-    takes a block where it has at least THREADS units (16-byte quads on the
-    vector path, words off it); a narrower line takes as many threads as
-    it has units and a block takes THREADS // units lines. The fan blocks,
-    one a 1,024 words of notify and at most FAN_BLOCKS, come first."""
+         vector: bool, sms: int) -> Tuple[int, int, int, int, int]:
+    """The write kernel's launch on a card of ``sms`` SMs, as the C entry
+    sizes it: (fan blocks, line blocks, threads a block, threads a line,
+    lines a block). A line takes a block where it has at least THREADS
+    units (16-byte quads on the vector path, words off it); a narrower line
+    takes as many threads as it has units and a block takes THREADS //
+    units lines. The line blocks take the live lines from a counter:
+    LINE_BLOCKS_PER_SM an SM, fewer where the buffer holds fewer line
+    blocks. The fan blocks, one a 1,024 words of notify and at most
+    FAN_BLOCKS, come first."""
     units = width // QUAD if vector else width
     span = min(max(units, 1), THREADS)
     per_block = THREADS // span
     fan = min(max(-(-channels * max_notify // (QUAD * THREADS)), 1),
               FAN_BLOCKS)
-    line = min(-(-channels * max_pairs // per_block), MAX_BLOCKS - fan)
+    line = min(-(-channels * max_pairs // per_block), sms * LINE_BLOCKS_PER_SM)
     return fan, line, THREADS, span, per_block
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SMs of the card ``dev``, which size the line walk's grid."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 _FALSE: Dict[torch.device, torch.Tensor] = {}
@@ -133,8 +148,9 @@ def deliver(result: plans.ChannelResult, group_sids: torch.Tensor,
             ) -> broker.FusedDelivery:
     """One kernel call, with ``broker.deliver_all``'s arguments and result.
     ``out`` may give the ``payload``, ``notify`` and (ring-less)
-    ``spill_mask`` buffers: the card-only tests pass views whose neighbours
-    hold a sentinel. Everything else is new."""
+    ``spill_mask`` buffers: the card-only tests pass views whose neighbours,
+    and whose payload lines past each channel's delivered count, hold a
+    sentinel. Everything else is new."""
     global LAUNCHES, VECTOR_LAUNCHES, SHAPE
     from repro_torch.kernels import _build
     dev = result.pair_valid.device
@@ -205,7 +221,7 @@ def deliver(result: plans.ChannelResult, group_sids: torch.Tensor,
     (stats, per_broker, ps_rows, ps_ch, ps_tgts, ss_vals, ss_ch, nr_rows,
      nr_tgts, nr_epochs, nr_sids, tile_sums, tile_offs, slots,
      items) = _carve(dev, I32, [
-         N_STAT * C + 3, C * nb, sc, sc, sc, sc, sc, C * W, C * W, C * W,
+         N_STAT * C + 4, C * nb, sc, sc, sc, sc, sc, C * W, C * W, C * W,
          C * W, 2 * C * tiles, 2 * C * tiles, 2 * C * max_pairs,
          4 * items_cap])
     spill_mask = (out["spill_mask"] if ring is None
@@ -235,7 +251,7 @@ def deliver(result: plans.ChannelResult, group_sids: torch.Tensor,
         target_brokers.shape[-1] if nb else 0, nb, W, spill_cap, max_pairs,
         max_notify, width, payload_words, items_cap, tiles, int(identity),
         int(ring is not None), int(vector_valid), int(vector_lines),
-        int(vector_notify))
+        int(vector_notify), sm_count(dev))
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

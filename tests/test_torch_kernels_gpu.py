@@ -868,17 +868,42 @@ def _deliver_case(name, device, seed=0):
                 **dict(CASES)[name])
 
 
-def _same_delivery(got, want, path=""):
-    """Every field of two FusedDelivery values, dtypes and shapes included."""
+def _same_fields(got, want, path=""):
+    """Every field of two values (tuples field by field), dtypes and shapes
+    included, bit for bit."""
     if got is None or want is None:
         assert got is None and want is None, path
     elif isinstance(got, tuple):
         for f, g, w in zip(getattr(got, "_fields", range(len(got))), got,
                            want):
-            _same_delivery(g, w, f"{path}.{f}")
+            _same_fields(g, w, f"{path}.{f}")
     else:
         assert (got.dtype == want.dtype and got.shape == want.shape
                 and got.device == want.device and torch.equal(got, want)), path
+
+
+def _same_delivery(got, want, path="", sentinel=None):
+    """Two FusedDelivery values: each channel's first ``delivered`` wire
+    lines and every other field bit for bit; the kernel leaves the lines
+    past that count as the buffer held them, so where ``sentinel`` was
+    planted there through ``out=`` every one of them still holds it."""
+    pay, ref = got.pack.payload, want.pack.payload
+    assert (pay.dtype == ref.dtype and pay.shape == ref.shape
+            and pay.device == ref.device), path
+    for c, d in enumerate(want.pack.delivered.tolist()):
+        assert torch.equal(pay[c, :d], ref[c, :d]), (path, c)
+        if sentinel is not None:
+            assert bool((pay[c, d:] == sentinel).all()), (path, c)
+    _same_fields(got._replace(pack=got.pack._replace(payload=None)),
+                 want._replace(pack=want.pack._replace(payload=None)), path)
+
+
+def _planted_payload(want):
+    """``out=`` for the kernel: a wire buffer of the plain version's shape
+    filled with DELIVER_SENTINEL."""
+    t = want.pack.payload
+    return {"payload": torch.full(t.shape, DELIVER_SENTINEL, dtype=t.dtype,
+                                  device=t.device)}
 
 
 def _deliver_names():
@@ -888,11 +913,14 @@ def _deliver_names():
 
 @pytest.mark.parametrize("name", _deliver_names())
 def test_deliver_kernel_matches_plain(cuda_device, name):
-    """Every field of ``FusedDelivery`` equals the plain version's bit for
-    bit: ring-less and ring-aware (stale epochs included), group tables and
-    the identity fanout, caps below, at and above the produced totals with
-    overflow into the ring and past it into the spill streams, C = 1, 2 and
-    3, lines and notify on the 16-byte path and off it; one launch each."""
+    """Each channel's delivered wire lines and every other field of
+    ``FusedDelivery`` equal the plain version's bit for bit, and the lines
+    past each count keep a sentinel planted through ``out=``: ring-less and
+    ring-aware (stale epochs included), group tables and the identity
+    fanout, caps below, at and above the produced totals with overflow into
+    the ring and past it into the spill streams, every line live, C = 1, 2
+    and 3, lines and notify on the 16-byte path and off it; one launch
+    each."""
     from repro_torch.core import broker
     from repro_torch.kernels.deliver import ops as dl_ops
     for seed in (0, 1, 2):
@@ -900,24 +928,33 @@ def test_deliver_kernel_matches_plain(cuda_device, name):
         before = (dl_ops.LAUNCHES, dl_ops.VECTOR_LAUNCHES)
         got = broker.deliver_all(**args)
         want = broker.deliver_plain(**args)
+        planted = dl_ops.deliver(**args, out=_planted_payload(want))
         torch.cuda.synchronize()
         _same_delivery(got, want, f"{name} seed {seed}")
+        _same_delivery(planted, want, f"{name} seed {seed} planted",
+                       DELIVER_SENTINEL)
         width = got.pack.payload.shape[-1]
         assert (dl_ops.LAUNCHES, dl_ops.VECTOR_LAUNCHES) == (
-            before[0] + 1,
-            before[1] + dl_ops.vector_ok([got.pack.payload], width))
+            before[0] + 2,
+            before[1] + 2 * dl_ops.vector_ok([got.pack.payload], width))
+        if name == "every-line-live":
+            assert int(want.pack.delivered.min()) == \
+                want.pack.payload.shape[1]
 
 
 def test_deliver_kernel_at_the_param_group_shape(cuda_device):
-    """paper-1m's param plan-group, (2, 131,072, 10,252): the live lines,
-    the zero tail, notify and every other field equal the plain version's
-    bit for bit, on the 16-byte path."""
+    """paper-1m's param plan-group, (2, 131,072, 10,252): each channel's
+    live lines, notify and every other field equal the plain version's bit
+    for bit, on the 16-byte path; the 10.5 GB of lines past the delivered
+    counts keep the sentinel planted there through ``out=``."""
     from repro_torch.core import broker
     from repro_torch.kernels.deliver import ops as dl_ops
     from torch_delivery_cases import PARAM_GROUP, case
     args = case(np.random.default_rng(7), device=cuda_device, **PARAM_GROUP)
+    out = {"payload": torch.full((2, 131072, 10252), DELIVER_SENTINEL,
+                                 dtype=torch.int32, device=cuda_device)}
     before = dl_ops.VECTOR_LAUNCHES
-    got = broker.deliver_all(**args)
+    got = dl_ops.deliver(**args, out=out)
     torch.cuda.synchronize()
     assert dl_ops.VECTOR_LAUNCHES == before + 1
     assert got.pack.payload.shape == (2, 131072, 10252)
@@ -926,10 +963,11 @@ def test_deliver_kernel_at_the_param_group_shape(cuda_device):
         d = int(want.pack.delivered[c])
         assert 1000 < d < 131072
         assert torch.equal(got.pack.payload[c, :d], want.pack.payload[c, :d])
-        assert int(torch.count_nonzero(got.pack.payload[c, d:])) == 0
+        assert bool((got.pack.payload[c, d:] == DELIVER_SENTINEL).all())
     del want
     torch.cuda.empty_cache()
-    _same_delivery(got, broker.deliver_plain(**args))
+    _same_delivery(got, broker.deliver_plain(**args), "param group",
+                   DELIVER_SENTINEL)
 
 
 def _guarded(dev, dtype, n, lead=0):
@@ -953,14 +991,15 @@ def _guards_hold(buf, n, lead=0) -> bool:
 @pytest.mark.parametrize("name", ["ringless-group", "ringless-identity",
                                   "caps-low", "ring-past-the-spill",
                                   "wide-vector", "big-groups-overflow",
-                                  "many-tiles"])
+                                  "many-tiles", "every-line-live"])
 @pytest.mark.parametrize("lead", [0, 1])
 def test_deliver_stores_stay_in_the_output(cuda_device, monkeypatch, name,
                                            lead):
     """Every buffer the kernel writes (payload, notify, spill mask, the
     spill streams, the successor ring, the counters and the scratch) is a
-    view between sentinels: no store lands outside it, and the values
-    inside match the plain version. ``lead`` 1 puts payload and notify 4 B
+    view between sentinels: no store lands outside it, nor on a wire line
+    past a channel's delivered count, and the values inside match the plain
+    version. ``lead`` 1 puts payload and notify 4 B
     off the 16-byte boundary, onto the word path."""
     from repro_torch.core import broker
     from repro_torch.kernels.deliver import ops as dl_ops
@@ -988,7 +1027,7 @@ def test_deliver_stores_stay_in_the_output(cuda_device, monkeypatch, name,
         out[key] = view.view(t.shape)
     got = dl_ops.deliver(**args, out=out)
     torch.cuda.synchronize()
-    _same_delivery(got, want, name)
+    _same_delivery(got, want, name, DELIVER_SENTINEL)
     for buf, n, lead_ in made:
         assert _guards_hold(buf, n, lead_), (name, buf.dtype, n)
 

@@ -155,6 +155,10 @@ CASES = [
     ("many-tiles", dict(C=2, rm=600, max_t=32, table="identity",
                         max_pairs=4096, max_notify=8192, density=0.02,
                         ring=32)),
+    # more valid pairs than lines in every channel: no line is dead
+    ("every-line-live", dict(C=2, rm=40, max_t=16, S=40, payload_words=8,
+                             max_pairs=96, max_notify=2048, density=0.5,
+                             ring=8)),
 ]
 
 
@@ -202,3 +206,6 @@ def ingest(eng, rng, n: int, t0: int, match: float = 0.4) -> None:
 PARAM_GROUP = dict(C=2, rm=16384, max_t=16, T=2048, S=10240, density=0.0115,
                    max_pairs=131072, max_notify=2 ** 25, spill_cap=8192,
                    payload_words=8, ring=4096, stale=0.1)
+# the same shape with more valid pairs than wire lines in each channel:
+# every one of the 262,144 lines is live
+PARAM_GROUP_FULL = dict(PARAM_GROUP, density=0.6)
